@@ -1,17 +1,17 @@
-"""Multi-scene batch inversion over a device mesh (BASELINE config #5).
+"""Multi-scene batch inversion over a device mesh.
 
 Shards a batch of dual-pol scenes over the mesh's 'data' axis and runs
-the fused-kernel pipeline per device. On a machine without multiple
-accelerators this self-hosts on a virtual CPU mesh (the same code runs
-unchanged on a TPU pod — inversion is embarrassingly parallel per pixel,
-so scaling across chips is linear).
+the inversion per device (the band-bucketed kernel on GPUs, the exact
+XLA path on CPUs). On a machine without multiple accelerators this
+self-hosts on a virtual CPU mesh; the same code runs unchanged on a
+multi-GPU host — inversion is embarrassingly parallel per pixel.
 """
 
 import os
 
 # Demonstrated on a virtual 8-device CPU mesh by default so it runs
-# anywhere (flags must be set BEFORE jax initializes). On a real TPU pod
-# set XSARSEA_MULTICHIP_BACKEND=native to use the actual devices.
+# anywhere (flags must be set BEFORE jax initializes). On a multi-GPU
+# host set XSARSEA_MULTICHIP_BACKEND=native to use the actual devices.
 _USE_CPU_MESH = os.environ.get("XSARSEA_MULTICHIP_BACKEND", "cpu") == "cpu"
 if _USE_CPU_MESH:
     flags = os.environ.get("XLA_FLAGS", "")
@@ -61,8 +61,7 @@ def main():
                             **kwargs)
 
     scenes, truths = zip(*[make_scene(96, 128, s) for s in range(3)])
-    mode = "pallas" if jax.default_backend() == "tpu" else "pallas_interpret"
-    outs = invert_scenes(tables, list(scenes), mesh, mode=mode)
+    outs = invert_scenes(tables, list(scenes), mesh)
 
     for i, ((co, dual), truth) in enumerate(zip(outs, truths)):
         rms = float(np.sqrt(np.nanmean((np.abs(dual) - truth) ** 2)))

@@ -3,8 +3,8 @@
 Counterpart of the reference notebook
 ``docs/examples/windspeed_retrieval_L1.ipynb``: forward-model a synthetic
 dual-pol (VV+VH) Sentinel-1-like scene, flatten the cross-pol noise,
-build the dsig weighting, invert with the fused TPU kernels, and compare
-the retrieved wind with the truth. Runs on TPU or CPU.
+build the dsig weighting, invert (the band-bucketed kernel on a GPU, the
+exact XLA path elsewhere), and compare the retrieved wind with the truth.
 """
 
 import numpy as np

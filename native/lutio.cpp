@@ -1,7 +1,7 @@
 /* xsarsea_tpu._lutio — native LUT codec.
  *
- * TPU-native counterpart of the reference's LUT ingest paths
- * (/root/reference/src/xsarsea/windspeed/cmod7.py:19-75 and the
+ * Native counterpart of the reference's LUT ingest paths
+ * (xsarsea windspeed/cmod7.py:19-75 and the
  * netCDF/pickle loaders): the hot I/O work — record stripping, the
  * Fortran->C order permutation, and the packed device-ready cache
  * format — runs in C++ in a single pass instead of two numpy copies.

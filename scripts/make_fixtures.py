@@ -33,7 +33,7 @@ Formats reproduced (reference = /root/reference/src/xsarsea/windspeed):
 Values are CMOD5N evaluated on each format's native grid (physically
 plausible sigma0), rounded to shorten the gzip payload where large.
 
-Run: PYTHONPATH=/root/repo python scripts/make_fixtures.py
+Run from the repository root: python scripts/make_fixtures.py
 """
 
 import gzip
@@ -51,7 +51,7 @@ def _cmod5n(inc, wspd, phi):
     """cmod5n on an outer-product grid -> (incidence, wspd, phi) linear."""
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # tiny eval; skip the TPU
+    jax.config.update("jax_platforms", "cpu")  # tiny eval; no accelerator needed
     jax.config.update("jax_enable_x64", True)  # f64 parity with the tests
     from xsarsea_tpu.models import get_model
 

@@ -1,4 +1,4 @@
-"""Shared parity assertion for pallas-vs-exact complex wind comparisons."""
+"""Shared parity assertion for kernel-vs-exact complex wind comparisons."""
 import numpy as np
 
 
@@ -9,7 +9,7 @@ def assert_equal_modulo_pi_ties(got, ref, mask=None):
     and -phi are the same physical direction and the reference's d1<=d2
     angular comparison is an exact floating-point tie — the sign of the
     (~wspd*sin(pi_fp) ~ 1e-5) imaginary part is rounding noise. The
-    fused pallas postprocess now replicates _disambiguate_phi's exact
+    kernel path's postprocess replicates _disambiguate_phi's exact
     op sequence, so these pixels normally agree bit-for-bit too; the
     conjugate is still accepted there because the two paths may reach
     the solution through different (tie-flipped) argmin routes whose

@@ -1,4 +1,4 @@
-"""Run the *reference* xsarsea physics as a parity oracle.
+"""Parity oracles: the *reference* xsarsea physics, and the inversion.
 
 The reference library cannot be imported as-is here (numba/xarray/dask are
 not installed), but its physics lives in pure numpy+python. This module
@@ -17,6 +17,8 @@ import sys
 import types
 
 import numpy as np
+
+import inversion_reference
 
 REF_SRC = "/root/reference/src/xsarsea"
 
@@ -97,169 +99,53 @@ def ref_gmf_grid(name, inc, wspd, phi=None):
 
 
 # ---------------------------------------------------------------- inversion
-
-_ref_windspeed_cache = None
-
-
-def _load_ref_windspeed():
-    """Load reference windspeed.py with numba/xarray stubbed (pure python)."""
-    global _ref_windspeed_cache
-    if _ref_windspeed_cache is not None:
-        return _ref_windspeed_cache
-
-    # ---- numba stub: types + a pure-python guvectorize implementing
-    # the "(n),(n),(n),(n),(n)->(n),(n)" contract used at windspeed.py:306-323
-    class _TypeExpr:
-        def __getitem__(self, item):
-            return self
-
-        def __call__(self, *a, **k):
-            return self
-
-    numba_stub = types.ModuleType("numba")
-    numba_stub.float64 = _TypeExpr()
-    numba_stub.float32 = _TypeExpr()
-    numba_stub.complex128 = _TypeExpr()
-    numba_stub.void = _TypeExpr()
-
-    def guvectorize(signatures, signature, **kw):
-        def deco(fn):
-            def wrapper(*arrays):
-                arrs = [np.asarray(a) for a in arrays]
-                shape = arrs[0].shape
-                flat = [np.ascontiguousarray(a).reshape(-1) for a in arrs]
-                out_co = np.empty(flat[0].shape, dtype=np.complex128)
-                out_cr = np.empty(flat[0].shape, dtype=np.complex128)
-                fn(*flat, out_co, out_cr)
-                return out_co.reshape(shape), out_cr.reshape(shape)
-
-            return wrapper
-
-        return deco
-
-    numba_stub.guvectorize = guvectorize
-    numba_stub.njit = lambda *a, **k: (lambda f: f)
-    numba_stub.vectorize = lambda *a, **k: (lambda f: np.vectorize(f))
-
-    # ---- xarray stub: force the pure-numpy code path
-    xr_stub = types.ModuleType("xarray")
-
-    def zeros_like(x, dtype=None):
-        raise TypeError("numpy-only oracle")
-
-    xr_stub.zeros_like = zeros_like
-    xr_stub.where = lambda cond, a, b: np.where(cond, a, b)
-    xr_stub.DataArray = type("DataArray", (), {})
-
-    saved = {k: sys.modules.get(k) for k in ("numba", "xarray")}
-    sys.modules["numba"] = numba_stub
-    sys.modules["xarray"] = xr_stub
-    try:
-        # xsarsea.utils stub (timing decorator only)
-        util_pkg = _ensure_pkg("xsarsea")
-        utils_stub = types.ModuleType("xsarsea.utils")
-        utils_stub.timing = lambda logger=None: (lambda f: f)
-        sys.modules["xsarsea.utils"] = utils_stub
-        util_pkg.utils = utils_stub
-
-        _ensure_pkg("xsarsea.windspeed")
-        models_stub = types.ModuleType("xsarsea.windspeed.models")
-        models_stub.get_model = lambda m: m
-        sys.modules["xsarsea.windspeed.models"] = models_stub
-
-        import logging
-
-        wutils_stub = types.ModuleType("xsarsea.windspeed.utils")
-        wutils_stub.logger = logging.getLogger("ref_oracle")
-        sys.modules["xsarsea.windspeed.utils"] = wutils_stub
-
-        mod = _exec_file(f"{REF_SRC}/windspeed/windspeed.py", "xsarsea_ref_windspeed")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                sys.modules.pop(k, None)
-            else:
-                sys.modules[k] = v
-
-    _ref_windspeed_cache = mod
-    return mod
-
-
-class ShimModel:
-    """Quacks like the reference Model for invert_from_model's needs."""
-
-    def __init__(self, lut_db, pol, name):
-        self._lut = lut_db  # DimArray, dims (incidence, wspd[, phi]), units dB
-        self.pol = pol
-        self.name = name
-
-    @property
-    def iscopol(self):
-        return len(set(self.pol)) == 1
-
-    @property
-    def iscrosspol(self):
-        return len(set(self.pol)) == 2
-
-    def to_lut(self, units="dB", **kwargs):
-        assert units == "dB"
-        return self._lut
-
+#
+# The inversion oracle is the plain float64 numpy loop of
+# tests/inversion_reference.py (written from the published method), so
+# these parity tests need no reference checkout.
 
 def ref_invert(inc, sigma0_co, sigma0_cr, dsig_cr, ancillary_wind,
                lut_co_db, lut_cr_db, dsig_co=0.1):
-    """Run the reference dual-pol inversion (pure-python numba shim).
+    """Reference dual-pol inversion of image arrays (sigma0 linear).
 
-    All image inputs are numpy arrays (sigma0 in linear units); LUTs are
-    DimArrays in dB with dims (incidence, wspd, phi) / (incidence, wspd).
-    Returns (wind_co, wind_dual) complex arrays.
+    LUTs are DimArrays in dB with dims (incidence, wspd, phi) /
+    (incidence, wspd). Returns (wind_co, wind_dual) complex arrays,
+    before the dual-pol merge.
     """
-    mod = _load_ref_windspeed()
-    model_co = ShimModel(lut_co_db, "VV", "oracle_co")
-    model_cr = ShimModel(lut_cr_db, "VH", "oracle_cr")
-    return mod.invert_from_model(
-        np.asarray(inc, dtype=np.float64),
-        np.asarray(sigma0_co, dtype=np.float64),
-        np.asarray(sigma0_cr, dtype=np.float64),
-        ancillary_wind=np.asarray(ancillary_wind, dtype=np.complex128),
-        dsig_co=dsig_co,
-        dsig_cr=np.asarray(dsig_cr, dtype=np.float64),
-        model=(model_co, model_cr),
-    )
+    t = inversion_reference.prepare(lut_co_db, lut_cr_db)
+    shape = np.shape(sigma0_co)
+    co, dual = inversion_reference.invert(
+        t, _flat(inc, shape), inversion_reference.to_db(sigma0_co).ravel(),
+        inversion_reference.to_db(sigma0_cr).ravel(), _flat(dsig_cr, shape),
+        _flat(ancillary_wind, shape, np.complex128), dsig_co)
+    return co.reshape(shape), dual.reshape(shape)
 
 
-def ref_invert_mono_copol(inc, sigma0_co, ancillary_wind, lut_co_db, dsig_co=0.1):
-    mod = _load_ref_windspeed()
-    model_co = ShimModel(lut_co_db, "VV", "oracle_co")
-    # mono: sigma0 has no .pol attribute -> reference warns and assumes model pol
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        return mod.invert_from_model(
-            np.asarray(inc, dtype=np.float64),
-            np.asarray(sigma0_co, dtype=np.float64),
-            None,
-            ancillary_wind=np.asarray(ancillary_wind, dtype=np.complex128),
-            dsig_co=dsig_co,
-            model=model_co,
-        )
+def ref_invert_mono_copol(inc, sigma0_co, ancillary_wind, lut_co_db,
+                          dsig_co=0.1):
+    t = inversion_reference.prepare(lut_co_db, None)
+    shape = np.shape(sigma0_co)
+    nan = np.full(int(np.prod(shape)), np.nan)
+    co, _ = inversion_reference.invert(
+        t, _flat(inc, shape), inversion_reference.to_db(sigma0_co).ravel(),
+        nan, nan, _flat(ancillary_wind, shape, np.complex128), dsig_co)
+    return co.reshape(shape)
 
 
 def ref_invert_mono_crosspol(inc, sigma0_cr, dsig_cr, lut_cr_db):
-    mod = _load_ref_windspeed()
-    model_cr = ShimModel(lut_cr_db, "VH", "oracle_cr")
-    import warnings
+    """Crosspol-only inversion: wind speed (real array)."""
+    t = inversion_reference.prepare(None, lut_cr_db)
+    shape = np.shape(sigma0_cr)
+    nan = np.full(int(np.prod(shape)), np.nan)
+    _, dual = inversion_reference.invert(
+        t, _flat(inc, shape), nan,
+        inversion_reference.to_db(sigma0_cr).ravel(), _flat(dsig_cr, shape),
+        nan.astype(np.complex128))
+    return np.abs(dual).reshape(shape)
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        return mod.invert_from_model(
-            np.asarray(inc, dtype=np.float64),
-            np.asarray(sigma0_cr, dtype=np.float64),
-            None,
-            dsig_cr=np.asarray(dsig_cr, dtype=np.float64),
-            model=model_cr,
-        )
+
+def _flat(a, shape, dtype=np.float64):
+    return np.broadcast_to(np.asarray(a, dtype), shape).ravel()
 
 
 # ----------------------------------------------------------------- gradients

@@ -99,7 +99,7 @@ def test_registration_contract_and_golden_values():
 
 
 def test_float32_accuracy_vs_float64():
-    """The f32 TPU path must stay within small relative error of f64."""
+    """The f32 path must stay within small relative error of f64."""
     import jax.numpy as jnp
 
     model = get_model("gmf_cmod5n")

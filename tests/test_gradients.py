@@ -135,24 +135,40 @@ def test_extract_windows_anchoring():
 
 
 def test_hist_bin_forms_agree():
-    """The TPU one-hot reduce and the CPU scatter-add binning forms sum
+    """The one-hot reduce (GPU) and scatter-add (CPU) binning forms sum
     the same per-element products; results agree to accumulation-order
-    rounding (and exactly in f64)."""
+    rounding (and exactly in f64), alone and through the multiscale
+    Gradients pipeline (forced with the tests' override)."""
     import xsarsea_tpu.gradients as G
 
     rng = np.random.default_rng(9)
     nwin, wpix, nb = 37, 230, 72
     wm = jnp.asarray(rng.uniform(0, 1, (nwin, wpix)))
     ki = jnp.asarray(rng.integers(0, nb, (nwin, wpix)).astype(np.int32))
+    hr = np.asarray(G._hist_bins(wm, ki, nb, "reduce"))
+    hs = np.asarray(G._hist_bins(wm, ki, nb, "scatter"))
+    np.testing.assert_allclose(hr, hs, rtol=1e-12, atol=0)
+
+    assert G.hist_bin_form("gpu") == "reduce"
+    assert G.hist_bin_form("cpu") == "scatter"
+    img = np.abs(rng.normal(1.0, 0.3, (2, 256, 256)))
+    da = DimArray(img, dims=("pol", "line", "sample"),
+                  coords={"pol": np.array(["VV", "VH"]),
+                          "line": np.arange(256) * 10.0,
+                          "sample": np.arange(256) * 10.0})
+    out = {}
     old = G._HIST_BIN_FORM
     try:
-        G._HIST_BIN_FORM = "reduce"
-        hr = np.asarray(G._hist_bins(wm, ki, nb))
-        G._HIST_BIN_FORM = "scatter"
-        hs = np.asarray(G._hist_bins(wm, ki, nb))
+        for form in ("reduce", "scatter"):
+            G._HIST_BIN_FORM = form
+            assert G.hist_bin_form("gpu") == form
+            g = G.Gradients(da, windows_sizes=[400, 800],
+                            downscales_factors=[1, 2])
+            out[form] = np.asarray(g.histogram["weight"].data)
     finally:
         G._HIST_BIN_FORM = old
-    np.testing.assert_allclose(hr, hs, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(out["reduce"], out["scatter"], rtol=1e-12,
+                               atol=1e-15)
 
 
 def test_extract_windows_batched_matches_unbatched():

@@ -7,6 +7,8 @@ degenerate 2-point grids, zero-stride window steps).
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +29,49 @@ def test_packaged_config_exists_and_loads():
     assert os.path.isfile(pkg_cfg), "packaged config.yml must ship with the wheel"
     cfg = load_config()
     assert "data_dir" in cfg
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_python(code, **env):
+    """Run ``code`` in a fresh CPU-only interpreter from the checkout."""
+    full = {k: v for k, v in os.environ.items()
+            if k != "JAX_COMPILATION_CACHE_DIR"}
+    full.update(JAX_PLATFORMS="cpu", PYTHONPATH=_REPO, **env)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=full,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+def test_import_needs_no_optional_packages():
+    """The package and the inversion, detrend and streaks entry points
+    import with PyYAML, pandas, matplotlib and holoviews unavailable."""
+    code = (
+        "import sys\n"
+        "for m in ('yaml', 'pandas', 'matplotlib', 'holoviews'):\n"
+        "    sys.modules[m] = None  # import raises ImportError\n"
+        "import xsarsea_tpu\n"
+        "from xsarsea_tpu.windspeed import invert_from_model\n"
+        "from xsarsea_tpu import sigma0_detrend\n"
+        "from xsarsea_tpu.gradients import Gradients\n"
+        "print('ok')\n")
+    assert _run_python(code) == "ok"
+
+
+@pytest.mark.parametrize("env_dir", [None, "elsewhere"])
+def test_compilation_cache_placement(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, where set, is left to JAX; otherwise the
+    cache sits at <checkout>/.jax_cache."""
+    env = {}
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    got = _run_python("import jax, xsarsea_tpu; "
+                      "print(jax.config.jax_compilation_cache_dir)", **env)
+    want = env.get("JAX_COMPILATION_CACHE_DIR",
+                   os.path.join(_REPO, ".jax_cache"))
+    assert got == want
 
 
 def test_get_test_file_local_short_circuit(tmp_path, monkeypatch):
@@ -101,6 +146,8 @@ def test_get_test_file_missing_raises(tmp_path, monkeypatch):
     import xsarsea_tpu.utils as u
 
     monkeypatch.setattr(u, "load_config", lambda: {"data_dir": str(tmp_path)})
+    # no download is attempted: fsspec unavailable, urllib failing
+    monkeypatch.setitem(sys.modules, "fsspec", None)
     monkeypatch.setattr(
         "urllib.request.urlretrieve",
         lambda *a, **k: (_ for _ in ()).throw(OSError("no network")))

@@ -1,4 +1,5 @@
-"""Wind inversion parity vs the reference implementation (run under stubs)."""
+"""Wind inversion parity vs the plain float64 reference
+(tests/inversion_reference.py)."""
 
 import numpy as np
 import pytest
@@ -114,7 +115,7 @@ def test_monopol_crosspol_parity():
 
 
 def test_float32_rms_below_tolerance():
-    """BASELINE criterion: f32 TPU path < 1e-3 m/s RMS vs f64 reference."""
+    """f32 path < 1e-3 m/s RMS vs the f64 reference."""
     inc, s0_co, s0_cr, dsig_cr, anc = synthetic_scene(ny=24, nx=32, seed=7)
     lut_co, lut_cr, kwargs = reduced_luts()
     ref_co, ref_dual_raw = ref_invert(inc, s0_co, s0_cr, dsig_cr, anc, lut_co, lut_cr)
@@ -293,7 +294,7 @@ def test_streaming_pieces_match_single_shot():
 
 
 def test_cmod7_lut_through_inversion(tmp_path):
-    """BASELINE config #5 plumbing: a (synthesized) CMOD7 KNMI binary table
+    """CMOD7 plumbing: a (synthesized) CMOD7 KNMI binary table
     registered, normalized (linear->dB, low->requested grid) and inverted,
     with parity against the reference oracle on the same LUT."""
     from xsarsea_tpu.models.cmod7 import register_cmod7
@@ -327,37 +328,37 @@ def test_cmod7_lut_through_inversion(tmp_path):
 
 
 def test_public_api_pallas_fast_mode():
-    """mode= flows through invert_from_model to the kernel pipeline; the
-    deprecated 'pallas_fast' alias warns and runs the exact 'pallas'
-    pipeline (round-5 retirement: the relaxed configs stopped being
-    faster with the fused pack-2 kernel)."""
+    """mode= flows through invert_from_model to the kernel pipeline, and
+    the retired mode names ('pallas', 'pallas_fast', ...) raise
+    instead of silently running another path."""
     inc, s0_co, s0_cr, dsig_cr, anc = synthetic_scene(ny=8, nx=10,
                                                       with_nans=False)
     kwargs = dict(inc_step=0.5, wspd_step=0.5, phi_step=5.0)
-    got_e = invert_from_model(inc, s0_co, s0_cr, ancillary_wind=anc,
-                              dsig_cr=dsig_cr, dtype=jnp.float32,
-                              model=("gmf_cmod5n", "gmf_s1_v2"),
-                              mode="pallas_interpret", **kwargs)
-    with pytest.warns(DeprecationWarning, match="pallas_fast"):
-        got_f = invert_from_model(inc, s0_co, s0_cr, ancillary_wind=anc,
-                                  dsig_cr=dsig_cr, dtype=jnp.float32,
-                                  model=("gmf_cmod5n", "gmf_s1_v2"),
-                                  mode="pallas_fast_interpret", **kwargs)
-    for a, b in zip(got_f, got_e):
+    common = dict(ancillary_wind=anc, dsig_cr=dsig_cr, dtype=jnp.float32,
+                  model=("gmf_cmod5n", "gmf_s1_v2"), device_db=False)
+    got_k = invert_from_model(inc, s0_co, s0_cr, mode="triton_interpret",
+                              **common, **kwargs)
+    got_e = invert_from_model(inc, s0_co, s0_cr, mode="exact",
+                              **common, **kwargs)
+    for a, b in zip(got_k, got_e):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for retired in ("pallas", "pallas_fast_interpret"):
+        with pytest.raises(ValueError, match="unknown inversion mode"):
+            invert_from_model(inc, s0_co, s0_cr, mode=retired, **common,
+                              **kwargs)
 
 
 def test_public_api_device_db_false_cross_mode_bit_parity():
-    """``device_db=False`` keeps host f64 dB prep in pallas mode, making
-    the public API bit-identical across modes (the auto default ships
-    linear f32 + device dB, which may flip near-cost-tie argmins)."""
+    """``device_db=False`` keeps host f64 dB prep in the kernel mode,
+    making the public API bit-identical across modes (the auto default
+    ships linear f32 + device dB, which may flip near-cost-tie argmins)."""
     inc, s0_co, s0_cr, dsig_cr, anc = synthetic_scene(ny=16, nx=20)
     kwargs = dict(inc_step=0.5, wspd_step=0.5, phi_step=5.0)
     common = dict(ancillary_wind=anc, dsig_cr=dsig_cr, dtype=jnp.float32,
                   model=("gmf_cmod5n", "gmf_s1_v2"))
     got_e = invert_from_model(inc, s0_co, s0_cr, mode="exact",
                               **common, **kwargs)
-    got_p = invert_from_model(inc, s0_co, s0_cr, mode="pallas_interpret",
+    got_p = invert_from_model(inc, s0_co, s0_cr, mode="triton_interpret",
                               device_db=False, **common, **kwargs)
     for a, b in zip(got_p, got_e):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

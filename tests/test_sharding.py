@@ -188,8 +188,8 @@ def test_sharded_streaks_histogram_matches_single_device():
 
 
 def test_sharded_pallas_inversion_matches_single_device(tables):
-    """Data-parallel fused-kernel path over the mesh == single-device
-    pallas (and the exact path) — pure SPMD, no collectives."""
+    """Data-parallel kernel path over the mesh == single-device kernel
+    path — pure SPMD, no collectives."""
     inc, s0_co_db, s0_cr_db, dsig_cr, anc = make_pixels(900, seed=3)
     # f32 tables for the kernel path
     kwargs = dict(inc_step=0.5, wspd_step=0.5, phi_step=5.0)
@@ -198,10 +198,10 @@ def test_sharded_pallas_inversion_matches_single_device(tables):
     mesh = make_mesh(n_data=8, n_model=1)
 
     co_ref, dual_ref = invert_pixels(t32, inc, s0_co_db, s0_cr_db, dsig_cr,
-                                     anc, mode="pallas_interpret")
+                                     anc, mode="triton_interpret")
     co_sh, dual_sh = sharded_invert_pixels(
         t32, inc, s0_co_db, s0_cr_db, dsig_cr, anc, mesh=mesh,
-        mode="pallas_interpret")
+        mode="triton_interpret")
 
     for got, ref in ((co_sh, co_ref), (dual_sh, dual_ref)):
         nan_g, nan_r = np.isnan(np.abs(got)), np.isnan(np.abs(ref))
@@ -215,11 +215,11 @@ def test_sharded_pallas_requires_data_only_mesh(tables):
     mesh = make_mesh(n_data=4, n_model=2)
     with pytest.raises(ValueError, match="model=1"):
         sharded_invert_pixels(tables, inc, s0_co_db, s0_cr_db, dsig_cr, anc,
-                              mesh=mesh, mode="pallas_interpret")
+                              mesh=mesh, mode="triton_interpret")
 
 
 def test_invert_scenes_pallas_mode():
-    """Multi-scene batch through the fused-kernel data-parallel path."""
+    """Multi-scene batch through the kernel's data-parallel path."""
     from xsarsea_tpu.parallel import invert_scenes
 
     kwargs = dict(inc_step=0.5, wspd_step=0.5, phi_step=5.0)
@@ -234,12 +234,12 @@ def test_invert_scenes_pallas_mode():
             sigma0_cr_db=s0_cr.reshape(h, w), dsig_cr=dsig_cr.reshape(h, w),
             ancillary_wind=anc.reshape(h, w)))
 
-    outs = invert_scenes(t32, scenes, mesh, mode="pallas_interpret")
+    outs = invert_scenes(t32, scenes, mesh, mode="triton_interpret")
     for scene, (co, dual) in zip(scenes, outs):
         co_ref, dual_ref = invert_pixels(
             t32, scene["inc"].reshape(-1), scene["sigma0_co_db"].reshape(-1),
             scene["sigma0_cr_db"].reshape(-1), scene["dsig_cr"].reshape(-1),
-            scene["ancillary_wind"].reshape(-1), mode="pallas_interpret")
+            scene["ancillary_wind"].reshape(-1), mode="triton_interpret")
         m = ~np.isnan(np.abs(co_ref))
         np.testing.assert_array_equal(co.reshape(-1)[m], co_ref[m])
         np.testing.assert_array_equal(dual.reshape(-1)[m], dual_ref[m])

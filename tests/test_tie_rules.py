@@ -105,8 +105,8 @@ def test_tied_costs_vs_reference_only_degenerate_flips(seed):
 
 
 def test_tied_costs_pallas_matches_exact():
-    """The fused kernels reproduce the same tie decisions as exact mode
-    (f32) on the engineered-tie LUTs."""
+    """The kernel reproduces the same tie decisions as exact mode (f32)
+    on the engineered-tie LUTs."""
     lut_co, lut_cr = _tied_luts()
     tables = InversionTables(lut_co, lut_cr, dtype=jnp.float32)
     rng = np.random.default_rng(7)
@@ -122,7 +122,7 @@ def test_tied_costs_pallas_matches_exact():
     co_e, dual_e = invert_pixels(tables, inc, s0_co_db, s0_cr_db, dsig_cr,
                                  anc, mode="exact")
     co_p, dual_p = invert_pixels(tables, inc, s0_co_db, s0_cr_db, dsig_cr,
-                                 anc, mode="pallas_interpret")
+                                 anc, mode="triton_interpret")
     for got, ref in ((co_p, co_e), (dual_p, dual_e)):
         assert_equal_modulo_pi_ties(got, ref)
 

@@ -3,7 +3,7 @@
 The streamed public-API path (_LazySource -> _invert_source) ships only
 the streams that exist: missing sigma0/ancillary streams are synthesized
 as NaN on device and a scalar dsig_cr ships as one 0-d scalar — both
-bit-identical to shipping the full arrays. On the f32 pallas path the
+bit-identical to shipping the full arrays. On the f32 kernel path the
 sigma0 streams additionally ship LINEAR with the 10*log10(x+1e-15)
 conversion fused into the jitted pipeline (reference host prep:
 windspeed.py:126-130); that moves the conversion from host f64 to
@@ -78,7 +78,7 @@ def test_scalar_dsig_multi_piece_padding():
 
 
 def test_device_db_auto_and_close_to_host_prep():
-    """f32 pallas path auto-enables device dB; results ~host-prep."""
+    """f32 kernel path auto-enables device dB; results ~host-prep."""
     inc, s0_co, s0_cr, anc = _scene(n=2048, seed=3)
     tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=jnp.float32,
                             **KW)
@@ -87,11 +87,11 @@ def test_device_db_auto_and_close_to_host_prep():
     src_dev = _LazySource((2048,), f32, inc, s0_co=s0_co, s0_cr=s0_cr,
                           dsig_cr=0.1, anc=anc)
     assert src_dev.device_db is None
-    co_d, dual_d = _invert_source(tables, src_dev, mode="pallas_interpret")
+    co_d, dual_d = _invert_source(tables, src_dev, mode="triton_interpret")
     # auto-resolution is per call (shallow copy): the caller's source is
     # NOT stamped, so reusing it with mode='exact' keeps host dB prep
     assert src_dev.device_db is None
-    # linear f32 on the wire when resolved for the pallas path
+    # linear f32 on the wire when resolved for the kernel path
     src_lin = _LazySource((2048,), f32, inc, s0_co=s0_co, s0_cr=s0_cr,
                           dsig_cr=0.1, anc=anc, device_db=True)
     np.testing.assert_allclose(src_lin.piece(0, 8)[1],
@@ -99,7 +99,7 @@ def test_device_db_auto_and_close_to_host_prep():
 
     src_host = _LazySource((2048,), f32, inc, s0_co=s0_co, s0_cr=s0_cr,
                            dsig_cr=0.1, anc=anc, device_db=False)
-    co_h, dual_h = _invert_source(tables, src_host, mode="pallas_interpret")
+    co_h, dual_h = _invert_source(tables, src_host, mode="triton_interpret")
     assert src_host.device_db is False  # explicit choice respected
 
     for got, ref in ((co_d, co_h), (dual_d, dual_h)):
@@ -200,29 +200,29 @@ def test_vector_incidence_bit_identical_and_small_on_wire():
     for a, b in zip(got_mp, ref):
         np.testing.assert_array_equal(a, b)
 
-    # the reconstruct wrapper composes with the pallas pipeline too
+    # the reconstruct wrapper composes with the kernel pipeline too
     t32 = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=jnp.float32, **KW)
     f32 = np.dtype(np.float32)
     sv = _LazySource((ny, nx), f32, inc_vec, s0_co=s0_co, s0_cr=s0_cr,
                      dsig_cr=0.1, anc=anc)
     sf = _LazySource((ny, nx), f32, np.ascontiguousarray(inc_full),
                      s0_co=s0_co, s0_cr=s0_cr, dsig_cr=0.1, anc=anc)
-    got_p = _invert_source(t32, sv, mode="pallas_interpret")
-    ref_p = _invert_source(t32, sf, mode="pallas_interpret")
+    got_p = _invert_source(t32, sv, mode="triton_interpret")
+    ref_p = _invert_source(t32, sf, mode="triton_interpret")
     for a, b in zip(got_p, ref_p):
         np.testing.assert_array_equal(a, b)
 
 
 def test_source_reuse_across_modes_keeps_each_wire_format():
-    """One source inverted pallas-then-exact: exact still bit-matches a
-    fresh exact run (the pallas call must not pin device_db=True)."""
+    """One source inverted kernel-then-exact: exact still bit-matches a
+    fresh exact run (the kernel call must not pin device_db=True)."""
     inc, s0_co, s0_cr, anc = _scene(n=1024, seed=7)
     t32 = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=jnp.float32, **KW)
     f32 = np.dtype(np.float32)
 
     src = _LazySource((1024,), f32, inc, s0_co=s0_co, s0_cr=s0_cr,
                       dsig_cr=0.1, anc=anc)
-    _invert_source(t32, src, mode="pallas_interpret")  # would auto device_db
+    _invert_source(t32, src, mode="triton_interpret")  # would auto device_db
     co_reused, dual_reused = _invert_source(t32, src, mode="exact")
     fresh = _LazySource((1024,), f32, inc, s0_co=s0_co, s0_cr=s0_cr,
                         dsig_cr=0.1, anc=anc)

@@ -1,9 +1,10 @@
-"""xsarsea_tpu — TPU-native SAR ocean analysis framework.
+"""xsarsea_tpu — SAR ocean analysis framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of
 umr-lops/xsarsea: GMF forward models, Bayesian wind inversion, sigma0
-detrending, wind-streak direction analysis — compiled for TPU and scaled
-over device meshes with jax.sharding.
+detrending, wind-streak direction analysis — compiled by XLA for NVIDIA
+GPUs (the inversion's hot loop as a Pallas kernel through Triton) or the
+CPU, and scaled over device meshes with jax.sharding.
 """
 
 __version__ = "0.1.0"

@@ -135,7 +135,7 @@ def cmd_invert(args):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="xsarsea-tpu",
-        description="TPU-native SAR ocean analysis toolkit",
+        description="SAR ocean analysis toolkit (JAX)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -171,7 +171,7 @@ def main(argv=None):
                        help="model name, or 'co_model,cr_model' for "
                             "dual-pol")
     p_inv.add_argument("--mode", default="auto",
-                       help="inversion mode (auto/exact/pallas)")
+                       help="inversion mode (auto/exact/triton)")
     p_inv.add_argument("--dsig-cr", type=float, default=0.1)
     p_inv.set_defaults(func=cmd_invert)
 

@@ -3,8 +3,8 @@
 `sigma0_detrend` divides out the incidence-angle trend predicted by a GMF at
 a fixed (wind speed, direction), following the reference algorithm
 (``detrend.py:8-68``): one GMF evaluation per column of the first image
-line, normalized by its mean, broadcast-divided into sigma0. On TPU the GMF
-evaluation and the divide run fused under jit.
+line, normalized by its mean, broadcast-divided into sigma0. The GMF
+evaluation and the divide run under jit on the device.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Lightweight labeled N-D array for the TPU-native xsarsea framework.
+"""Lightweight labeled N-D array for the JAX xsarsea framework.
 
 The reference library (umr-lops/xsarsea) operates on ``xarray.DataArray``
 objects everywhere (e.g. ``src/xsarsea/windspeed/models.py:82-174``,
-``src/xsarsea/gradients.py``).  This framework is JAX/TPU-first: the payload
+``src/xsarsea/gradients.py``).  This framework is JAX-first: the payload
 of a :class:`DimArray` is a ``jax.Array`` (or numpy array on host), and the
 object is registered as a JAX pytree so it can cross ``jit`` boundaries.
 

@@ -1,7 +1,7 @@
 """Model registry: abstract Model, LUT normalization, alias resolution.
 
-TPU-native redesign of the reference registry
-(``/root/reference/src/xsarsea/windspeed/models.py``): the same public
+JAX redesign of the reference registry (xsarsea
+``windspeed/models.py``): the same public
 surface (``Model``, ``available_models``, ``get_model``, ``register_luts``,
 ``Model.to_lut``, ``Model.to_netcdf``) but LUTs are
 :class:`~xsarsea_tpu.dimarray.DimArray` objects whose payload lives on the
@@ -196,8 +196,8 @@ class Model:
         """Serialize this model as a dB LUT netCDF file (models.py:232-262).
 
         Copol models are stored at low resolution, crosspol at high, like
-        the reference. Also writes the TPU-packed sidecar when requested via
-        :mod:`xsarsea_tpu.io.lut_io`.
+        the reference. Also writes the packed device-ready sidecar when
+        requested via :mod:`xsarsea_tpu.io.lut_io`.
         """
         from xsarsea_tpu.io.lut_io import write_lut
 

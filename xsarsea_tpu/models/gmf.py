@@ -1,4 +1,4 @@
-"""GmfModel: analytic GMFs as jit/vmap-compiled TPU kernels.
+"""GmfModel: analytic GMFs as jit/vmap-compiled XLA programs.
 
 Replaces the reference numba compilation zoo (``gmfs.py:174-264`` compiles
 each scalar GMF five ways: njit / vectorize / guvectorize / numpy
@@ -39,7 +39,7 @@ class _LazyGmfEval:
 
     The reference keeps direct GMF evaluation on dask inputs lazy via
     ``da.broadcast_arrays`` + the numba ufunc (gmfs.py:293-316). The
-    TPU-native equivalent is this duck chunked array: it satisfies the
+    equivalent here is this duck chunked array: it satisfies the
     package-wide lazy protocol (``shape``/``ndim``/``dtype``/``chunks``
     + numpy-style first-axis slicing, see ``is_chunked``) and evaluates
     the jitted GMF on row blocks only when a block is requested — the
@@ -157,8 +157,8 @@ class GmfModel(Model):
     def __init__(self, name, gmf_fn, wspd_range=None, pol=None, units=None, **kwargs):
         # probe: does the function accept/require phi, and with what period?
         # (reference probes the same way, gmfs.py:134-158). Probing runs
-        # eagerly on the *host CPU device* — tiny scalar ops must never be
-        # dispatched to a (possibly remote) accelerator.
+        # eagerly on the *host CPU device* — tiny scalar ops are not worth
+        # an accelerator dispatch each.
         phi_range = kwargs.pop("phi_range", None)
         needs_phi = True
         with jax.default_device(_cpu_device()):
@@ -327,8 +327,8 @@ class GmfModel(Model):
         phi = _grid(self.phi_range, phi_step) if self.phi_range is not None else None
 
         # LUT construction is a one-off host-side task: evaluate on the CPU
-        # device and keep the result as numpy, so the (possibly remote)
-        # accelerator is only handed the final packed table.
+        # device and keep the result as numpy, so the accelerator
+        # is only handed the final packed table.
         with jax.default_device(_cpu_device()):
             lut = self.__call__(inc, wspd, phi)
         lut = lut.copy(data=np.asarray(lut.data))

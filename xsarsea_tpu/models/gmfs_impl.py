@@ -1,4 +1,4 @@
-"""Analytic Geophysical Model Functions (GMFs), TPU-native.
+"""Analytic Geophysical Model Functions (GMFs) in jax.numpy.
 
 Pure ``jax.numpy`` implementations — branchless (scalar ``if``s of the
 published formulations become ``jnp.where``), dtype-polymorphic and

@@ -1,1 +1,1 @@
-"""Low-level TPU ops: Pallas kernels and XLA compute primitives."""
+"""Low-level ops: the Pallas inversion kernel and XLA compute primitives."""

@@ -3,9 +3,10 @@
 The reference reaches native performance for these through OpenCV C++
 (``cv2.Scharr`` gradients.py:612-613, ``cv2.resize INTER_AREA``
 gradients.py:351-352) and scipy ``convolve2d`` (gradients.py:637-672).
-Here every stencil lowers to ``lax.conv_general_dilated`` (TPU MXU/VPU) and
-INTER_AREA resampling becomes two small matmuls against precomputed
-fractional-overlap weight matrices (MXU-friendly, exact area averaging).
+Here every stencil lowers to XLA (``lax.conv_general_dilated`` or fused
+shifted-slice passes) and INTER_AREA resampling becomes two small
+matmuls against precomputed fractional-overlap weight matrices (exact
+area averaging).
 
 Boundary conventions are faithfully preserved:
 
@@ -67,15 +68,15 @@ _BOUNDARY_TO_PAD = {"symm": "symmetric", "reflect101": "reflect", "fill": "const
 
 
 def _mm(a, b):
-    """Matmul at full input precision (f32 on TPU, not the bf16 default)."""
+    """Matmul at full f32 input precision (not the TF32/bf16 default)."""
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 
 def _conv_valid(img, kernel):
     """2-D valid cross-correlation via lax.conv (f32/f64 by input dtype).
 
-    ``precision=HIGHEST``: without it XLA feeds the TPU MXU bf16 inputs
-    (~2e-3 relative error on f32 data — measured vs the scipy oracle).
+    ``precision=HIGHEST``: without it XLA may round f32 inputs (TF32 on
+    the GPU, bf16 on other accelerators: ~1e-3 relative error).
     """
     k = jnp.asarray(kernel, dtype=img.dtype)
     out = lax.conv_general_dilated(
@@ -111,11 +112,10 @@ def _separate_kernel(kernel_bytes, shape):
 def _conv1d_slices(x, taps, axis, mode, fill):
     """1-D 'same' convolution along ``axis`` as shifted slice + FMA.
 
-    The TPU-fast stencil form: XLA fuses the shifted reads into one
-    vectorized elementwise pass (measured ~16x faster than the
-    single-channel lax.conv lowering, and fully f32-accurate — no MXU
-    bf16 rounding). Taps with weight exactly 0 (Scharr's center, the
-    dilated B22/B42 lattices) are skipped.
+    XLA fuses the shifted reads into one elementwise pass, fully
+    f32-accurate (no reduced-precision conv inputs). Taps with weight
+    exactly 0 (Scharr's center, the dilated B22/B42 lattices) are
+    skipped.
 
     scipy 'same' anchor: pad k//2 BEFORE and (k-1)//2 after (verified
     against scipy.signal.convolve2d for odd and even kernel dims; the
@@ -142,13 +142,11 @@ def conv2d_same(img, kernel, boundary="symm", fillvalue=0.0, correlate=False):
     """scipy.signal.convolve2d(mode='same') equivalent on jnp arrays.
 
     True convolution (kernel flipped) unless ``correlate=True``; supports
-    complex images by convolving the parts separately (TPU conv is real).
+    complex images by convolving the parts separately (lax.conv is real).
 
     Separable kernels (every stencil in this pipeline: B2/B4/B22/B42
-    binomials and Scharr) run as two shifted-slice 1-D passes — the
-    fast AND accurate stencil form on TPU (the single-channel lax.conv
-    lowering routes through the MXU with bf16 inputs: ~2e-3 relative
-    error and ~16x slower, measured). Padding one axis commutes exactly
+    binomials and Scharr) run as two shifted-slice 1-D passes, exact in
+    f32. Padding one axis commutes exactly
     with convolving the other (mirrored columns are copies; a zero fill
     column convolves to zero), so boundary handling is bit-faithful to
     the fused 2-D pad for symm/reflect/wrap and for fill == 0.
@@ -207,15 +205,9 @@ def smooth_b2(img):
 def coarsen2_mean(img):
     """2x2 block mean with trailing trim (xr.coarsen boundary='trim').
 
-    Computed as row-pair add, then column-pair add, then one multiply:
-    the natural TPU dataflow (sublane-stride adds at full width, the
-    lane-stride slice only on the half-size intermediate). The obvious
-    ``reshape(h//2, 2, w//2, 2).mean(axis=(1, 3))`` forces an
-    interleaved relayout and measures **19.4 ms** on a 4096^2 f32 image
-    (one v5e chip) vs **1.65 ms** for this form — 12x — while a 4-way
-    stride-2 slice-add measures 197 ms (lane-dim stride-2 gathers are
-    the worst layout on TPU). Bit-identical to the reshape-mean form
-    (same pairwise summation tree: (x00+x10)+(x01+x11), one final
+    Computed as row-pair add, then column-pair add, then one multiply.
+    Bit-identical to the ``reshape(h//2, 2, w//2, 2).mean(axis=(1, 3))``
+    form (same pairwise summation tree: (x00+x10)+(x01+x11), one final
     *0.25 — verified elementwise-equal on random 4096^2 inputs and by
     the reference-parity tests).
     """
@@ -262,14 +254,14 @@ def _zoom_weights(n_in, n_out):
 
 
 def zoom_bilinear(img, out_shape):
-    """scipy.ndimage.zoom(order=1) equivalent as two matmuls (MXU)."""
+    """scipy.ndimage.zoom(order=1) equivalent as two matmuls."""
     img = jnp.asarray(img)
     # fractional weights need a float dtype: casting them to an integer
     # image dtype would truncate them to 0/1 and zero out the result
     dt = jnp.promote_types(img.dtype, jnp.float32)
     wr = jnp.asarray(_zoom_weights(img.shape[0], out_shape[0]), dtype=dt)
     wc = jnp.asarray(_zoom_weights(img.shape[1], out_shape[1]), dtype=dt)
-    # full f32 MXU precision: the default feeds bf16 (~1e-3 rel error)
+    # full f32 precision: the default may round inputs (~1e-3 rel error)
     return _mm(_mm(wr, img.astype(dt)), wc.T)
 
 
@@ -291,8 +283,8 @@ def resize_area(img, out_shape):
     """cv2.resize(..., INTER_AREA) equivalent for shrinking, as two matmuls.
 
     Exact fractional area averaging (what INTER_AREA computes when
-    downscaling), expressed as W_r @ img @ W_c^T so XLA maps it onto the
-    MXU. Used by the multiscale resampler (gradients.py:336-362).
+    downscaling), expressed as W_r @ img @ W_c^T (two matrix products).
+    Used by the multiscale resampler (gradients.py:336-362).
     """
     n_out_r, n_out_c = out_shape
     img = jnp.asarray(img)
@@ -300,5 +292,5 @@ def resize_area(img, out_shape):
     dt = jnp.promote_types(img.dtype, jnp.float32)
     wr = jnp.asarray(_area_weights(img.shape[0], n_out_r), dtype=dt)
     wc = jnp.asarray(_area_weights(img.shape[1], n_out_c), dtype=dt)
-    # full f32 MXU precision: the default feeds bf16 (~1e-3 rel error)
+    # full f32 precision: the default may round inputs (~1e-3 rel error)
     return _mm(_mm(wr, img.astype(dt)), wc.T)

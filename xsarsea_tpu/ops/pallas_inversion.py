@@ -1,25 +1,31 @@
-"""Fused Pallas TPU kernel for the copol inversion argmin.
+"""Pallas kernel (Triton route) for the copol + crosspol inversion argmin.
 
-This is the north-star kernel replacing the reference's numba-guvectorized
-per-pixel loop (``windspeed.py:183-282, 306-323``). The exact-XLA fallback
-gathers the full (wspd, phi) LUT plane per pixel (~360 KB/pixel of HBM
-traffic); this kernel removes that traffic entirely:
+The plain XLA form of the inversion (``mode="exact"``) gathers, for every
+pixel, the pixel's own nearest-incidence (wspd, phi) LUT slice (~360 KB
+at the high-resolution grid) and reduces the Bayesian cost over it. This
+kernel shares that slice between pixels instead:
 
 1. Pixels are bucketed by their nearest-incidence LUT index (an exact,
-   tie-rule-preserving ``searchsorted`` nearest — see
-   :func:`nearest_index_sorted`), so every 256-pixel block shares ONE
-   incidence slice.
-2. A ``PrefetchScalarGridSpec`` index map DMAs exactly that slice's tiles
-   into VMEM, pipelined by the Pallas runtime (double-buffered).
-3. The kernel evaluates the Bayesian cost ``(lut'-s0')² + (u'-ma')² +
-   (v'-mz')²`` for a (256 pixels × 2048 grid-entries) tile on the VPU and
-   tracks a running (min, argmin) per pixel across tiles, preserving
-   numpy's first-minimum tie rule.
+   tie-rule-preserving nearest — see :func:`nearest_index_sorted`) into
+   blocks of ``block`` pixels that all share ONE incidence slice
+   (:func:`bucket_by_band`).
+2. One program per block walks that slice in ``tile``-entry steps, in a
+   loop inside the program (blocks run in no order on the GPU and carry
+   nothing between each other), evaluating the cost for ``block x tile``
+   (pixel, grid-entry) pairs per step with exactly the exact path's f32
+   op sequence, and keeps a running (min, first step) per (pixel, lane).
+   A step whose cost lower bound (from its precomputed LUT range and
+   (u, v) box) cannot beat any pixel's best cost so far is skipped, and
+   the sweep starts at the block's ancillary wind speed so that most
+   steps are. Skipped steps cannot hold the minimum, so the result does
+   not depend on the skipping. The final cross-lane reduction takes the
+   lowest flat index among the lanes attaining the minimum: numpy's
+   first-minimum tie rule over the (wspd-major, phi-minor) order.
+3. The crosspol 1-D argmin runs as the epilogue, with the copol winner's
+   wspd as its prior, for the same pixels.
 
-Cost arrays are pre-scaled host-side (lut/dsig, u/2, v/2) so the inner
-loop is 3 subtracts + 3 multiplies + 2 adds per entry. The argmin index is
-decoded and post-processed (phi disambiguation, crosspol, NaN guards) in
-XLA outside the kernel.
+The decode to wind values, the ±phi disambiguation and the NaN guards
+stay in XLA (``windspeed/inversion.py``), shared with the exact path.
 """
 
 from __future__ import annotations
@@ -32,39 +38,276 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = [
-    "copol_group_argmin_pallas",
-    "slab_refine_pallas",
-    "slab_refine_fused_pallas",
-    "crosspol_argmin_pallas",
-    "build_crosspol_arrays",
-    "build_decode_arrays",
+    "band_argmin",
+    "build_band_arrays",
     "bucket_by_band",
-    "bucket_by_value",
-    "band_boundaries_f32",
     "near_uniform_fit",
     "nearest_index_sorted",
     "nearest_index_near_uniform",
     "nearest_index_uniform",
-    "build_direct_arrays",
-    "SLAB_ROWS",
-    "WGROUP",
 ]
 
-DEFAULT_BLOCK = 256  # pixels per block (shares one incidence slice), on lanes
-DEFAULT_TILE = 2048  # LUT grid entries per kernel step (16 rows of 128)
 _PAD_LUT = 1e19  # padded grid entries -> cost overflows to +inf, never chosen
+_BIG_IDX = 2 ** 30
+
+
+#: pixels per program (all share one incidence band), grid entries per
+#: loop step (each wspd row is padded to whole steps, so a step never
+#: straddles two rows and its (u, v) box stays one arc), and the Triton
+#: launch parameters. Measured on an H100 at the high-resolution grid
+#: (PERF.md, Findings): 32 x 32 with 4 warps beat every other block x step
+#: from 16 x 16 to 128 x 128 and 2-8 warps; smaller steps bound the
+#: costs more tightly and skip more, larger blocks skip less often.
+BLOCK, TILE, NUM_WARPS, NUM_STAGES = 32, 32, 4, 2
+
+
+def build_band_arrays(co_lut, co_u, co_v, tile, cr_lut=None, cr_wspd=None):
+    """Tile-padded kernel operands (numpy, built once per table).
+
+    Returns ``(lut (I, W*Pp), u_half (W*Pp,), v_half, l_box (I, 2, S),
+    uv_box (4, S), cr_lut (Ic*Ec,), cr_w_half (Ec,))``, with each wspd
+    row padded from P to Pp (a multiple of ``tile``) phi entries, S =
+    W*Pp/tile steps and Ec the crosspol wspd count rounded up to a
+    multiple of ``tile``. Padded LUT entries hold a huge dB value, so
+    their cost overflows to +inf and never wins. u, v and the crosspol
+    wspd are stored halved: halving is exact, so ``u/2 - ma/2`` rounds
+    exactly like the exact path's ``(u - ma)/2``.
+
+    ``l_box`` (per band: min, max of the LUT over each step's real
+    entries) and ``uv_box`` (umin, umax, vmin, vmax, halved) bound every
+    cost a step can produce; the kernel skips steps whose bound cannot
+    beat the best cost found so far. The crosspol table is flat so the
+    kernel can gather one row per pixel (a block shares its copol band,
+    not necessarily its crosspol band).
+    """
+    lut = np.asarray(co_lut, np.float32)
+    n_inc, n_w, n_p = lut.shape
+    n_pp = -(-n_p // tile) * tile
+    real = np.zeros((n_w, n_pp), bool)
+    real[:, :n_p] = True
+    lut_p = np.full((n_inc, n_w, n_pp), _PAD_LUT, np.float32)
+    lut_p[:, :, :n_p] = lut
+    u_h = np.zeros((n_w, n_pp), np.float32)
+    v_h = np.zeros((n_w, n_pp), np.float32)
+    u_h[:, :n_p] = np.asarray(co_u, np.float32) * 0.5
+    v_h[:, :n_p] = np.asarray(co_v, np.float32) * 0.5
+    steps = n_w * n_pp // tile
+    real = real.reshape(steps, tile)
+
+    def box(x, axis):
+        big = np.float32(np.inf)
+        return (np.min(np.where(real, x, big), axis=axis),
+                np.max(np.where(real, x, -big), axis=axis))
+
+    l_box = np.stack(box(lut_p.reshape(n_inc, steps, tile), -1), axis=1)
+    uv_box = np.stack(box(u_h.reshape(steps, tile), -1)
+                      + box(v_h.reshape(steps, tile), -1))
+    out = (lut_p.reshape(n_inc, -1), u_h.reshape(-1), v_h.reshape(-1),
+           l_box, uv_box)
+    if cr_lut is None:
+        return out + (np.zeros(tile, np.float32), np.zeros(tile, np.float32))
+    cr = np.asarray(cr_lut, np.float32)
+    ec = -(-cr.shape[1] // tile) * tile
+    cr_f = np.full((cr.shape[0], ec), _PAD_LUT, np.float32)
+    cr_f[:, :cr.shape[1]] = cr
+    cr_wh = np.zeros(ec, np.float32)
+    cr_wh[:cr.shape[1]] = np.asarray(cr_wspd, np.float32) * 0.5
+    return out + (cr_f.reshape(-1), cr_wh)
+
+
+def _div_rn(x, y):
+    """IEEE round-to-nearest f32 division.
+
+    Triton lowers ``/`` on f32 to the approximate ``div.full.f32``; the
+    exact path's XLA division is correctly rounded, and the two must agree
+    bit for bit for the argmin to pick the same node.
+    """
+    (q,) = plgpu.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;", args=[x, y], constraints="=f,f,f",
+        pack=1, result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, x.dtype)])
+    return q
+
+
+def _first_argmin(m, a, block, tile):
+    """Lowest flat index among the lanes attaining each pixel's minimum.
+
+    ``m``/``a``: per (pixel, lane) running minimum and the step of its
+    first attainment. NaN costs never win, so an all-NaN pixel returns 0
+    (discarded by the NaN guards downstream, as the exact path's argmin
+    of all-NaN is).
+    """
+    flat = a * tile + lax.broadcasted_iota(jnp.int32, (block, tile), 1)
+    gmin = jnp.min(m, axis=1, keepdims=True)
+    return jnp.min(jnp.where(m == gmin, flat, _BIG_IDX), axis=1)
+
+
+# a step is skipped when its cost bound, shrunk by this factor, exceeds
+# the pixel's best cost so far: the bound and the costs are both f32
+# with a few ulps (~1e-6 relative) of rounding, so a skipped step can
+# hold neither the minimum nor a tie with it
+_BOUND_SLACK = 1.0 - 1e-5
+
+
+def _band_argmin_kernel(band_ref, live_ref, k0_ref, dsig_ref, s0_ref, ma_ref,
+                        mz_ref, s0cr_ref, dsigcr_ref, icr_ref, lut_ref, u_ref,
+                        v_ref, lbox_ref, uvbox_ref, crlut_ref, crwh_ref,
+                        wspd_ref, flat_ref, crbest_ref, *, block, tile,
+                        n_steps, n_steps_cr, n_phi_pad, has_cr, interpret):
+    div = jnp.divide if interpret else _div_rn
+
+    # all-padding blocks (bucket tails) skip their work; their outputs
+    # are never read
+    @pl.when(live_ref[0] > 0)
+    def _():
+        band = band_ref[0]
+        k0 = k0_ref[0]
+        s0_v = s0_ref[...]
+        ma_v = ma_ref[...]
+        mz_v = mz_ref[...]
+        s0, ma2, mz2 = s0_v[:, None], ma_v[:, None], mz_v[:, None]
+        dsig_s = dsig_ref[0]
+        dsig = jnp.broadcast_to(dsig_s, (block, tile))
+        inv_dsig = 1.0 / dsig_s
+
+        def cost(k):
+            lut = lut_ref[band, pl.ds(k * tile, tile)][None, :]
+            du = u_ref[pl.ds(k * tile, tile)][None, :] - ma2
+            dv = v_ref[pl.ds(k * tile, tile)][None, :] - mz2
+            q = div(lut - s0, dsig)
+            # the exact path's order: (jwind_u + jwind_v) + jsig
+            return (du * du + dv * dv) + q * q
+
+        def bound(k):
+            # per-pixel lower bound of the step's costs: distance of the
+            # pixel to the step's LUT range and (u, v) box
+            ds = jnp.maximum(jnp.maximum(lbox_ref[band, 0, k] - s0_v,
+                                         s0_v - lbox_ref[band, 1, k]), 0.0)
+            du = jnp.maximum(jnp.maximum(uvbox_ref[0, k] - ma_v,
+                                         ma_v - uvbox_ref[1, k]), 0.0)
+            dv = jnp.maximum(jnp.maximum(uvbox_ref[2, k] - mz_v,
+                                         mz_v - uvbox_ref[3, k]), 0.0)
+            q = ds * inv_dsig
+            return (du * du + dv * dv) + q * q
+
+        # visit steps from the anchor (the block's ancillary speed row)
+        # upward, then from below it downward, so the best cost drops
+        # early and most steps are skipped. Equal costs keep the lower
+        # step, which with a lane's fixed offset is the lower flat index:
+        # numpy's first-minimum rule holds in any visiting order.
+        n_up = n_steps - k0
+
+        def body(j, carry):
+            k = jnp.where(j < n_up, k0 + j, k0 - 1 - (j - n_up))
+
+            def visit(c):
+                m, a, best = c
+                jk = cost(k)
+                better = (jk < m) | ((jk == m) & (k < a))
+                return (jnp.where(better, jk, m), jnp.where(better, k, a),
+                        jnp.minimum(best, jnp.min(jk, axis=1)))
+
+            need = jnp.max(jnp.where(bound(k) * _BOUND_SLACK <= carry[2],
+                                     1, 0))
+            return lax.cond(need > 0, visit, lambda c: c, carry)
+
+        m, a, _ = lax.fori_loop(0, n_steps, body, (
+            jnp.full((block, tile), jnp.inf, jnp.float32),
+            jnp.zeros((block, tile), jnp.int32),
+            jnp.full((block,), jnp.inf, jnp.float32)))
+        flat = _first_argmin(m, a, block, tile)
+        flat_ref[...] = flat
+        if not has_cr:
+            return
+
+        # crosspol 1-D argmin with the copol winner as prior; the prior
+        # term only where a copol observation exists (exact path order:
+        # jsig + where(has_co, jwind, 0))
+        has_co = ~jnp.isnan(s0)
+        wco2 = wspd_ref[flat // n_phi_pad][:, None] * 0.5
+        s0cr = s0cr_ref[...][:, None]
+        dsigcr = jnp.broadcast_to(dsigcr_ref[...][:, None], (block, tile))
+        row = icr_ref[...][:, None] * (n_steps_cr * tile)
+        lane = lax.broadcasted_iota(jnp.int32, (1, tile), 1)
+
+        def cr_body(k, carry):
+            m, a = carry
+            lut = crlut_ref[row + (k * tile + lane)]
+            q = div(lut - s0cr, dsigcr)
+            dw = crwh_ref[pl.ds(k * tile, tile)][None, :] - wco2
+            jk = q * q + jnp.where(has_co, dw * dw, 0.0)
+            better = jk < m
+            return jnp.where(better, jk, m), jnp.where(better, k, a)
+
+        m, a = lax.fori_loop(0, n_steps_cr, cr_body, (
+            jnp.full((block, tile), jnp.inf, jnp.float32),
+            jnp.zeros((block, tile), jnp.int32)))
+        crbest_ref[...] = _first_argmin(m, a, block, tile)
+
+
+def band_argmin(operands, co_wspd, dsig_co, feats, icr, band_of_block, live,
+                anchor, *, n_phi_pad, has_cr, block, tile, num_warps,
+                num_stages, interpret=False):
+    """Copol (and crosspol) argmin for band-bucketed pixel blocks.
+
+    Parameters
+    ----------
+    operands : the tuple from :func:`build_band_arrays` as device arrays
+        (crosspol ones are never read when ``has_cr`` is False).
+    co_wspd : (W,) f32 copol wspd grid (the crosspol prior's decode).
+    dsig_co : (1,) f32.
+    feats : (n_slots, 5) f32 per slot — (s0_co_db, anc_re/2, mz/2,
+        s0_cr_db, dsig_cr), with mz = |anc_im| for symmetric LUTs; NaN
+        rows mark padding slots.
+    icr : (n_slots,) i32 crosspol incidence row per slot.
+    band_of_block, live, anchor : (n_blocks,) i32 — incidence band of
+        each block, 0 for blocks holding no pixel, and the step the
+        block's sweep starts from (any value gives the same result).
+
+    Returns ``(flat_co, best_cr)``: (n_slots,) i32 copol grid index in
+    the row-padded (wspd-major, phi-minor) order, ``iw * n_phi_pad +
+    ip``, and crosspol wspd index per slot.
+    """
+    lut, u_h, v_h, l_box, uv_box, cr_lut, cr_w_half = operands
+    n_blocks = band_of_block.shape[0]
+    n_slots = n_blocks * block
+    per_px = pl.BlockSpec((block,), lambda b: (b,))
+    per_blk = pl.BlockSpec((1,), lambda b: (b,))
+
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda b: (0,) * a.ndim)
+
+    ins = (band_of_block, live, anchor, dsig_co,
+           *(feats[:, c] for c in range(5)), icr,
+           lut, u_h, v_h, l_box, uv_box, cr_lut, cr_w_half, co_wspd)
+    in_specs = ([per_blk] * 3 + [whole(dsig_co)] + [per_px] * 6
+                + [whole(a) for a in ins[10:]])
+    kernel = partial(_band_argmin_kernel, block=block, tile=tile,
+                     n_steps=lut.shape[1] // tile,
+                     n_steps_cr=cr_w_half.shape[0] // tile,
+                     n_phi_pad=n_phi_pad, has_cr=has_cr, interpret=interpret)
+    return pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=in_specs,
+        out_specs=[per_px, per_px],
+        out_shape=[jax.ShapeDtypeStruct((n_slots,), jnp.int32)] * 2,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
+        interpret=interpret,
+        name="band_argmin",
+    )(*ins)
 
 
 def nearest_index_uniform(g0, step, n, values):
     """Gather-free nearest-index on a uniform grid (g0 + k*step, k<n).
 
     Candidate cell from a multiply + floor, then a 3-candidate
-    first-minimum compare — same tie rule as :func:`nearest_index_sorted`
-    but ~20x faster on TPU (the vectorized binary search lowers to
-    per-step gathers). g0/step/n must be concrete Python numbers.
+    first-minimum compare — same tie rule as :func:`nearest_index_sorted`.
+    g0/step/n must be concrete Python numbers.
     """
     g0 = float(g0)
     step = float(step)
@@ -91,10 +334,9 @@ def near_uniform_fit(gnp):
 
     Near-uniform means every point sits within 0.4*step of the fit —
     loose enough to accept f32-cast linspace/arange coords (whose steps
-    jitter at ulp scale: an EXACT-step check silently demotes the TPU
-    pipeline to the binary-search path, costing ~75 ns/px at 8.4 Mpx —
-    the round-2 regression this guards against), tight enough that the
-    true nearest index is always within +-1 of the fit's candidate cell.
+    jitter at ulp scale; an EXACT-step check would send every f32 LUT
+    axis to the binary search), tight enough that the true nearest index
+    is always within +-1 of the fit's candidate cell.
     """
     gnp = np.asarray(gnp, dtype=np.float64)
     n = gnp.shape[0]
@@ -116,18 +358,13 @@ def nearest_index_near_uniform(grid, g0, step, values):
 
     The candidate cell comes from uniform-grid arithmetic (multiply +
     floor on the endpoint (g0, step) fit of ``near_uniform_fit``); the
-    decision compares the
-    TRUE grid values of the 3 candidate cells with a strict
-    first-minimum update — so the result bit-matches
+    decision compares the TRUE grid values of the 3 candidate cells with
+    a strict first-minimum update — so the result bit-matches
     ``np.argmin(|grid - v|)`` on the actual grid (including the
     lower-index tie rule the reference relies on, windspeed.py:212), for
-    any grid whose points deviate from the fit by < 0.4*step.
-
-    TPU cost: the 3 candidates come from ONE row gather of a packed
-    (n, 3) neighbour table (grid[k-1], grid[k], grid[k+1]) — a packed
-    row gather costs ~9.4 ns/px at 8.4 Mpx vs ~33 ns/px for three
-    separate scalar gathers (scalar gathers don't coalesce; this was
-    the single largest glue item in the inversion pipeline's stage 1a).
+    any grid whose points deviate from the fit by < 0.4*step. The 3
+    candidates come from one row gather of a packed (n, 3) neighbour
+    table.
     """
     n = grid.shape[0]
     ar = jnp.arange(n)
@@ -196,170 +433,54 @@ def nearest_index_sorted(grid, values):
         idx = jnp.where(grid[0] > grid[-1], desc(grid), asc(grid))
     # NaN values -> index 0 (result discarded by NaN guards downstream).
     # +-inf -> index 0 too: every |g[k] - inf| is inf, so np.argmin's
-    # first-minimum rule picks 0 — the near-uniform path, the exact
-    # mode's argmin and bucket_by_value already agree on that; the raw
-    # binary search would return n-1 for +inf (ascending grids) or for
-    # -inf (descending), a review-caught divergence between the two
-    # internal paths.
+    # first-minimum rule picks 0, as the near-uniform path and the exact
+    # mode's argmin do; the raw binary search would return n-1 for +inf
+    # (ascending grids) or for -inf (descending).
     return jnp.where(jnp.isnan(values) | jnp.isinf(values), 0,
                      idx).astype(jnp.int32)
 
 
 @partial(jax.jit, static_argnames=("n_bands", "block"))
-def bucket_by_band(band, n_bands, block=DEFAULT_BLOCK, values=None):
+def bucket_by_band(band, n_bands, block):
     """Group pixel indices by band into block-aligned buckets.
 
     Returns ``(perm, band_of_block)`` where ``perm`` has static length
-    ``N + n_bands*block`` (-1 marks padding slots) and lists pixel indices
-    ordered band-by-band, each band padded to a multiple of ``block``;
-    ``band_of_block[b]`` is the (single) band of block ``b``.
+    ``(ceil(N/block) + n_bands) * block`` (-1 marks padding slots) and
+    lists pixel indices ordered band-by-band, each band padded to a
+    multiple of ``block``; ``band_of_block[b]`` is the (single) band of
+    block ``b``. The order within a band is unspecified: no pixel's
+    result depends on its slot.
 
-    ``values`` (default: iota) is the int32 payload carried through the
-    sort into ``perm``'s slots — pass an existing bucket permutation to
-    re-bucket it by a refined key WITHOUT first scattering the key back
-    to pixel order (the second sort of the two-stage pipeline reuses the
-    first stage's slot space this way). Entries whose ``band`` is >=
-    ``n_bands`` are sentinels: they sort past every real band and their
-    payload is never placed in a real band's slots (padding slots hold
-    -1 either from initialization or from a -1 sentinel payload).
-
-    TPU cost note: everything per-pixel here is a sort, a cumsum, or one
-    scatter. Per-band quantities (segment starts, padded offsets) come
-    from a 1-D ``searchsorted`` over the *sorted* keys and are spread
-    back to pixel resolution by telescoped sparse-add + cumsum — the
-    naive formulation's ``bincount`` and per-pixel gathers from the
-    per-band tables each cost ~80 ms at 8M pixels (gather/scatter-add
-    run near 10 ns/element on TPU; vector ops are ~100x cheaper).
+    Everything per-pixel here is a sort, a cumsum, or one scatter:
+    per-band segment starts come from a ``searchsorted`` over the sorted
+    keys and are spread back to pixel resolution by a telescoped
+    sparse-add + cumsum, not by per-pixel gathers from per-band tables.
     """
     n = band.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     key_bits = max(int(np.ceil(np.log2(max(n_bands + 1, 2)))), 1)
     idx_bits = max(int(np.ceil(np.log2(max(n, 2)))), 1)
-    if values is None and key_bits + idx_bits <= 32:
-        # iota payload fitting beside the key in one u32: pack
-        # (band << idx_bits | idx) and sort HALF the bytes of the pair
-        # sort (the bitonic network is data-movement bound). Keys are
-        # unique, so the order is identical to a stable pair sort.
+    if key_bits + idx_bits <= 32:
+        # the pixel index fits beside the key in one u32: sort the packed
+        # (band << idx_bits | idx) alone. Keys are unique, so the order
+        # is that of a stable pair sort.
         packed = ((band.astype(jnp.uint32) << idx_bits)
                   | iota.astype(jnp.uint32))
         (packed,) = lax.sort((packed,), is_stable=False, num_keys=1)
         ks = (packed >> idx_bits).astype(jnp.int32)
         order = (packed & jnp.uint32((1 << idx_bits) - 1)).astype(jnp.int32)
     else:
-        if values is None:
-            values = iota
-        # unstable: a pixel's result never depends on its slot within the
-        # bucket (per-lane argmin), and the unstable TPU sort measures
-        # ~25% faster (5.8 vs 7.7 ns/px at 8M)
-        ks, order = lax.sort((band.astype(jnp.int32), values),
+        ks, order = lax.sort((band.astype(jnp.int32), iota),
                              is_stable=False, num_keys=1)
-    # lb[b] = first slot of band b in the sorted keys; counts via diff.
-    # The extra n_bands entry is the first sentinel slot (= n when there
-    # are no sentinels), so sentinel entries never count into any band.
+    # lb[b] = first slot of band b in the sorted keys; counts via diff
     lb_ext = jnp.searchsorted(
         ks, jnp.arange(n_bands + 1, dtype=jnp.int32)).astype(jnp.int32)
-    # dest[i] = pad_offsets[b_i] + (i - lb[b_i]) for the i-th sorted
-    # pixel, spread by telescoped sparse-add + cumsum; see
-    # _assemble_buckets (shared with bucket_by_value).
-    return _assemble_buckets(lb_ext, order, n, n_bands, block)
-
-
-def band_boundaries_f32(grid_np):
-    """Exact f32 decision boundaries of the nearest-index rule.
-
-    ``t[b-1]`` (b = 1..n-1) is the SMALLEST f32 value whose exact nearest
-    index is ``b`` under the shared rule (first minimum of ``|g[k] - v|``
-    evaluated in f32 — the same quantities ``nearest_index_sorted`` /
-    ``nearest_index_near_uniform`` and the exact path's argmin compute).
-    Found per adjacent pair by bit-level binary search on the monotone
-    predicate ``|g[b] - v| < |g[b-1] - v|`` (f32 subtraction is monotone,
-    so the flip point is unique). Requires a strictly ascending grid
-    whose values are all finite and non-negative in f32.
-    """
-    g = np.asarray(grid_np, np.float32)
-    if g.ndim != 1 or g.shape[0] < 2 or not np.all(np.diff(g) > 0) \
-            or not np.all(np.isfinite(g)) or g[0] < 0:
-        return None
-    out = np.empty(g.shape[0] - 1, np.float32)
-    for b in range(1, g.shape[0]):
-        glo, ghi = g[b - 1], g[b]
-
-        def in_b(v):
-            v = np.float32(v)
-            return np.float32(np.abs(ghi - v)) < np.float32(np.abs(glo - v))
-
-        ilo = int(glo.view(np.int32))  # predicate False here
-        ihi = int(ghi.view(np.int32))  # predicate True here
-        if in_b(glo) or not in_b(ghi):  # degenerate grid spacing
-            return None
-        while ihi - ilo > 1:  # positive f32: bit order == value order
-            imid = (ilo + ihi) // 2  # python ints: no i32 overflow
-            if in_b(np.int64(imid).astype(np.int32).view(np.float32)):
-                ihi = imid
-            else:
-                ilo = imid
-        out[b - 1] = np.int64(ihi).astype(np.int32).view(np.float32)
-    return out
-
-
-def _f32_sort_key_np(v):
-    """numpy twin of the in-graph monotone f32->u32 key transform."""
-    v = np.asarray(v, np.float32)
-    bits = v.view(np.uint32)
-    key = np.where(bits >> 31 == 1, ~bits, bits | np.uint32(0x80000000))
-    # +-inf -> band 0 (every |g[k] - inf| is inf: first-min picks 0);
-    # NaN -> max key (last band; outputs NaN-guarded downstream)
-    key = np.where(np.isinf(v), np.uint32(0), key)
-    return np.where(np.isnan(v), np.uint32(0xFFFFFFFF), key)
-
-
-@partial(jax.jit, static_argnames=("n_bands", "block"))
-def bucket_by_value(values_f32, boundary_keys, n_bands, block=DEFAULT_BLOCK):
-    """Group pixels into nearest-grid-index buckets WITHOUT computing the
-    per-pixel index: the nearest lookup fuses into the bucket sort.
-
-    Pixels sort by a monotone u32 transform of their f32 value (IEEE
-    positive floats are bit-ordered; negatives flip; NaN -> max key, so
-    NaN pixels land in the last band where their outputs are discarded
-    by the NaN guards — the gather-based path's band-0 placement was
-    equally arbitrary). Per-band segment bounds then come from
-    ``searchsorted`` of the 501-ish precomputed boundary keys
-    (:func:`band_boundaries_f32` + the same u32 transform) into the
-    sorted keys — O(n_bands log n) instead of the per-pixel packed
-    neighbour-table gather (measured ~4 ns/px at 8.4 Mpx) the separate
-    nearest pass cost. Band assignment is bit-identical to
-    ``nearest_index_sorted`` for every non-NaN value by construction of
-    the boundaries.
-
-    Returns ``(perm, band_of_block)`` exactly like :func:`bucket_by_band`.
-    """
-    n = values_f32.shape[0]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    bits = lax.bitcast_convert_type(values_f32, jnp.uint32)
-    key = jnp.where(bits >> 31 == 1, ~bits, bits | jnp.uint32(0x80000000))
-    # +-inf -> band 0 (matches nearest's first-min over all-inf
-    # distances); NaN -> max key (last band; NaN-guarded downstream)
-    key = jnp.where(jnp.isinf(values_f32), jnp.uint32(0), key)
-    key = jnp.where(jnp.isnan(values_f32), jnp.uint32(0xFFFFFFFF), key)
-    ks, order = lax.sort((key, iota), is_stable=False, num_keys=1)
-    lb_ext = jnp.concatenate([
-        jnp.zeros((1,), jnp.int32),
-        jnp.searchsorted(ks, boundary_keys).astype(jnp.int32),
-        jnp.full((1,), n, jnp.int32),
-    ])
-    return _assemble_buckets(lb_ext, order, n, n_bands, block)
-
-
-def _assemble_buckets(lb_ext, order, n, n_bands, block):
-    """Shared bucket assembly from per-band segment bounds (see
-    bucket_by_band's cost note): counts -> padded offsets -> telescoped
-    destination slots -> one monotone scatter."""
-    iota = jnp.arange(n, dtype=jnp.int32)
     lb = lb_ext[:-1]
     counts = jnp.diff(lb_ext)
     pad_counts = ((counts + block - 1) // block) * block
     pad_offsets = (jnp.cumsum(pad_counts) - pad_counts).astype(jnp.int32)
 
+    # dest[i] = pad_offsets[b_i] + (i - lb[b_i]) for the i-th sorted pixel
     delta = pad_offsets - lb
     ddelta = jnp.diff(delta, prepend=jnp.int32(0))
     sparse = jnp.zeros((n,), jnp.int32).at[lb].add(ddelta, mode="drop")
@@ -377,732 +498,3 @@ def _assemble_buckets(lb_ext, order, n, n_bands, block):
         jnp.zeros((n_blocks,), jnp.int32).at[starts].add(inc, mode="drop")
     )
     return perm, band_of_block
-
-
-_BIG_IDX = np.int32(2 ** 30)
-
-
-def _split3_bf16(a):
-    """Exact 3-term bf16 decomposition of f32: a == a0 + a1 + a2.
-
-    bf16 carries 8 mantissa bits and the full f32 exponent range, so three
-    rounds of round-and-subtract capture all 24 f32 mantissa bits exactly
-    (each residual is exact by Sterbenz cancellation).
-    """
-    a0 = a.astype(jnp.bfloat16)
-    r1 = a - a0.astype(jnp.float32)
-    a1 = r1.astype(jnp.bfloat16)
-    a2 = (r1 - a1.astype(jnp.float32)).astype(jnp.bfloat16)
-    return a0, a1, a2
-
-
-def _group_argmin_kernel(feats_ref, g4_ref, out_ref, gmin_scr, *,
-                         tile, block, gpt, n_groups, splits=3):
-    """One (pixel-block, grid-tile) step: cost matmul + per-wgroup mins.
-
-    The Bayesian cost expands as
-
-        J[e, p] = q[e] - 2*(l'[e]*s0'[p] + u'[e]*ma'[p] + v'[e]*mz'[p]) + C[p]
-
-    with q = l'^2 + u'^2 + v'^2 precomputed per grid entry and C a per-pixel
-    constant that cannot move the per-pixel argmin. So the whole cost tile
-    is ONE MXU matmul: ``J = G^T(K, tile) @ F(K, block)``.
-
-    The matmul runs as a *single* DEFAULT-precision bf16 MXU pass: both
-    operands are pre-split into exact bf16 terms (:func:`_split3_bf16`)
-    whose cross products each occupy a K slot. ``splits=3`` gives exact
-    f32-dot accuracy — K = 3 s_a x 3 s_b x 4 channels = 36, padded to 48
-    with a zero s_a block for bf16 sublane tiling. ``splits=2`` gives
-    ~2^-16 relative accuracy at K = 2 x 2 x 4 = 16 with a ~3x smaller
-    grid operand — ample for the coarse pass, whose candidate feeds a
-    slab refine with a 24-row margin. Either way it is one systolic pass
-    (K < 128); a f32 `Precision.HIGHEST` dot computes the same sums with
-    SIX bf16 passes — measured 4.1x slower — and Mosaic does not lower
-    `Precision.HIGH`.
-
-    Downstream only needs the winning *wspd group* (the slab refine
-    re-searches every row around it in exact direct form), so instead of
-    a full per-entry argmin — whose index bookkeeping costs ~3 VPU passes
-    over the tile — the tile is packed group-aligned (``gpt`` groups of
-    ``tile//gpt`` entries) and reduced to per-group minima in one pass.
-    The final step takes the first-minimum group, which selects the same
-    slab as the full argmin would (lowest tied group == group of the
-    lowest tied flat index, since entries are wspd-major).
-
-    feats_ref: (4, block) f32; g4_ref: (K, tile) bf16, K-ordered
-    (s_a, s_b, channel) with the a-split replicated over s_b;
-    out_ref: (1, block) i32; gmin_scr: (n_tiles*gpt, block) f32.
-    """
-    t = pl.program_id(1)
-
-    bs = _split3_bf16(feats_ref[:])[:splits]       # each (4, block) bf16
-    b_cat = jnp.concatenate(bs, axis=0)            # (4*splits, block): (s_b, c)
-    # s_a copies of the b-side rows; splits=3 carries a 4th copy pairing
-    # with the all-zero g4 block (K padded 36 -> 48 for bf16 sublanes)
-    reps = 4 if splits == 3 else splits
-    feats_k = jnp.concatenate([b_cat] * reps, axis=0)  # (K, block)
-
-    j = lax.dot_general(
-        g4_ref[:], feats_k,
-        (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (tile, block)
-
-    gm = jnp.min(j.reshape(gpt, tile // gpt, block), axis=1)  # (gpt, block)
-    gmin_scr[pl.ds(t * gpt, gpt), :] = gm
-
-    @pl.when(t == pl.num_programs(1) - 1)
-    def _():
-        scr = gmin_scr[:]
-        tmin = jnp.min(scr, axis=0, keepdims=True)
-        gidx = lax.broadcasted_iota(jnp.int32, scr.shape, 0)
-        best = jnp.min(jnp.where(scr == tmin, gidx, _BIG_IDX),
-                       axis=0, keepdims=True)
-        # all-NaN pixels never match (comparisons are false): best stays
-        # _BIG_IDX; clip into range so downstream bucketing keys are valid
-        # (the result itself is discarded by the NaN guards).
-        out_ref[:] = jnp.clip(best, 0, n_groups - 1)
-
-
-def copol_group_argmin_pallas(g4, feats, band_of_block, n_groups, gsize,
-                              block=DEFAULT_BLOCK, interpret=False):
-    """Blocked copol wspd-group argmin (expanded-cost matmul form).
-
-    Parameters
-    ----------
-    g4 : (I, n_tiles, K, tile) bf16 with K in {16, 48} — per incidence
-        slice and grid tile, the bf16-split expanded-cost rows (see
-        ``_group_argmin_kernel``; K=16 -> 2-split coarse accuracy,
-        K=48 -> exact f32 dot), packed so each aligned ``gsize`` chunk
-        holds one wspd group's (sub-sampled) grid entries, padded with
-        q=1e19.
-    feats : (n_blocks*block, 4) f32 — per-pixel (-2*s0', -2*ma', -2*mz', 1).
-    band_of_block : (n_blocks,) i32 — incidence slice per block.
-    n_groups : true number of wspd groups (ceil(W / WGROUP)).
-    gsize : entries per group chunk (tile % gsize == 0).
-
-    Returns (n_blocks, block) i32 winning wspd-group per pixel.
-    """
-    n_blocks = band_of_block.shape[0]
-    n_tiles, tile = g4.shape[1], g4.shape[3]
-    k_rows = g4.shape[2]
-    assert tile % gsize == 0
-    assert g4.dtype == jnp.bfloat16 and k_rows in (16, 48)
-    splits = 3 if k_rows == 48 else 2
-    gpt = tile // gsize
-    # pixels on lanes: feats (n_blocks, 4, block)
-    feats = feats.reshape(n_blocks, block, 4).transpose(0, 2, 1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_blocks, n_tiles),
-        in_specs=[
-            pl.BlockSpec((1, 4, block), lambda b, t, s: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, k_rows, tile), lambda b, t, s: (s[b], t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 1, block), lambda b, t, s: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n_tiles * gpt, block), jnp.float32),
-        ],
-    )
-
-    def kernel(band_ref, feats_ref, g4_ref, out_ref, gmin_scr):
-        _group_argmin_kernel(feats_ref[0], g4_ref.at[0, 0], out_ref.at[0],
-                             gmin_scr, tile=tile, block=block, gpt=gpt,
-                             n_groups=n_groups, splits=splits)
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks, 1, block), jnp.int32),
-        interpret=interpret,
-    )(band_of_block, feats, g4).reshape(n_blocks, block)
-
-
-# ---------------------------------------------------------------- slab refine
-#
-# The main argmin kernel evaluates the cost in EXPANDED form (one MXU
-# matmul), which loses ~eps*|q| ≈ 1e-2 of absolute precision — enough to
-# shift the argmin a few cells along near-tie valleys. The refine step
-# re-evaluates the cost in DIRECT form around each candidate. Doing that
-# with per-pixel XLA gathers costs ~3 s/Mpx (vmapped dynamic_slice lowers
-# to scalar-ish HBM gathers); this kernel instead buckets pixels by
-# (incidence band, wspd group) so a whole block shares one 48-row
-# full-phi LUT slab resident in VMEM, and the per-pixel cost is dense
-# VPU work: pixels on sublanes, phi on lanes, wspd rows iterated.
-
-WGROUP = 16      # wspd-group stride for slab bucketing
-SLAB_MARGIN = 8  # refine window half-width in wspd rows around the candidate
-SLAB_ROWS = WGROUP + 2 * SLAB_MARGIN  # covers [16g-8, 16g+24) ⊇ any window
-SLAB_BLOCK = 128  # pixels per slab-refine block (on sublanes)
-
-
-def build_direct_arrays(lut_db, u, v):
-    """Lane/sublane-padded direct-form arrays for the slab-refine kernel.
-
-    lut_db: (I, W, P); u, v: (W, P). Returns (lut_pad, u_pad, v_pad) with
-    W padded up to a multiple of 8 plus slab slack and P padded to a
-    multiple of 128. Padded LUT entries get a huge value so their cost
-    overflows to +inf and can never win the argmin. u/v are stored
-    pre-halved (the kernel's feats carry ma/2, mz/2): x/2 is an exact fp
-    operation, so (u/2 - ma/2) rounds identically to (u - ma)/2.
-    """
-    lut_db = np.asarray(lut_db, dtype=np.float32)
-    I, W, P = lut_db.shape
-    Wp = ((W + 63) // 8 + 1) * 8  # slack for the widest (fast-mode) slab
-    Pp = ((P + 127) // 128) * 128
-    lut_pad = np.full((I, Wp, Pp), _PAD_LUT, dtype=np.float32)
-    lut_pad[:, :W, :P] = lut_db
-    u_pad = np.zeros((Wp, Pp), dtype=np.float32)
-    u_pad[:W, :P] = np.asarray(u, dtype=np.float32) * 0.5
-    v_pad = np.zeros((Wp, Pp), dtype=np.float32)
-    v_pad[:W, :P] = np.asarray(v, dtype=np.float32) * 0.5
-    return lut_pad, u_pad, v_pad
-
-
-def build_direct_arrays_packed(lut_db, u, v):
-    """Pack-2 lane layout for the slab sweep: two wspd rows per lane-row.
-
-    With P true phi lanes padded to ``Pp = 128*ceil(P/128)``, the plain
-    layout wastes ``Pp - P`` lanes of VPU work on EVERY row (29% at the
-    production P=181 -> Pp=256). This layout places the row pair
-    (2r, 2r+1) side by side on one lane-row of width
-    ``L2 = 128*ceil(2P/128)`` — row 2r at lanes [0, P), row 2r+1 at
-    [P, 2P), pad beyond — so the sweep runs half as many iterations on
-    1.5x the lanes: 25% fewer VPU ops at P=181, with the per-element fp
-    op sequence unchanged (bit-identical costs; only the index decode
-    differs, see _slab_cr_block's pack2 branch).
-
-    Returns ``(lut_pk (I, Wp/2, L2), u_pk, v_pk, wp_rows=Wp, lane_off=P)``
-    with Wp 16-aligned (so 16-aligned true srow0 maps to an 8-aligned
-    packed start row), or ``None`` when the layout saves nothing
-    (``L2 >= 2*Pp``, e.g. P a multiple of 128 or just above it).
-    """
-    lut_db = np.asarray(lut_db, dtype=np.float32)
-    I, W, P = lut_db.shape
-    L2 = ((2 * P + 127) // 128) * 128
-    if L2 >= 2 * (((P + 127) // 128) * 128):
-        return None
-    Wp = ((W + 63) // 16 + 1) * 16  # 16-aligned rows + slab slack
-    lut_t = np.full((I, Wp, P), _PAD_LUT, np.float32)
-    lut_t[:, :W] = lut_db
-    u_t = np.zeros((Wp, P), np.float32)
-    u_t[:W] = np.asarray(u, np.float32) * 0.5
-    v_t = np.zeros((Wp, P), np.float32)
-    v_t[:W] = np.asarray(v, np.float32) * 0.5
-    lut_pk = np.full((I, Wp // 2, L2), _PAD_LUT, np.float32)
-    u_pk = np.zeros((Wp // 2, L2), np.float32)
-    v_pk = np.zeros((Wp // 2, L2), np.float32)
-    lut_pk[:, :, :P] = lut_t[:, 0::2]
-    lut_pk[:, :, P:2 * P] = lut_t[:, 1::2]
-    u_pk[:, :P] = u_t[0::2]
-    u_pk[:, P:2 * P] = u_t[1::2]
-    v_pk[:, :P] = v_t[0::2]
-    v_pk[:, P:2 * P] = v_t[1::2]
-    return lut_pk, u_pk, v_pk, Wp, P
-
-
-CR_BLOCK = 256  # pixels per crosspol-argmin block (on sublanes)
-
-
-def build_crosspol_arrays(cr_lut_db, cr_wspd):
-    """Lane-padded operands for the crosspol argmin kernel.
-
-    cr_lut_db: (I, Wc) dB; cr_wspd: (Wc,). Returns (lut_pad (I, 1, Wp),
-    w_half (1, Wp)) with Wp a multiple of 128; padded LUT entries get a
-    huge value so their cost can never win. wspd is stored pre-halved:
-    (w - wco)/2 rounds identically to w/2 - wco/2 (exact halving).
-    """
-    lut = np.asarray(cr_lut_db, np.float32)
-    I, W = lut.shape
-    Wp = ((W + 127) // 128) * 128
-    lut_pad = np.full((I, 1, Wp), _PAD_LUT, np.float32)
-    lut_pad[:, 0, :W] = lut
-    w_half = np.zeros((1, Wp), np.float32)
-    w_half[0, :W] = np.asarray(cr_wspd, np.float32) * 0.5
-    return lut_pad, w_half
-
-
-def _crosspol_kernel(band_ref, feats_ref, lut_ref, wh_ref, out_ref, *,
-                     block, wp):
-    """Per block: 1-D crosspol cost argmin over one VMEM LUT row.
-
-    Replicates the reference crosspol minimization (windspeed.py:252-276):
-    ``j = ((lut - s0)/dsig)² + ((w - wco)/2)²`` with the prior term only
-    when a copol solution exists, argmin over wspd with numpy's
-    first-minimum tie rule (lowest lane among equal minima). The division
-    is kept a true divide so rounding matches the XLA/exact path.
-
-    feats rows: (s0_cr_db, dsig_cr, wco/2 [0 when absent], has_co).
-    """
-
-    def col(i):
-        return jnp.broadcast_to(feats_ref[0, i, :].reshape(block, 1),
-                                (block, wp))
-
-    s0 = col(0)
-    dsig = col(1)
-    wco2 = col(2)
-    has_co = col(3)
-
-    lut = lut_ref[0, 0, :].reshape(1, wp)
-    wh = wh_ref[0, :].reshape(1, wp)
-    j = ((lut - s0) / dsig) ** 2 + ((wh - wco2) ** 2) * has_co
-    lane = lax.broadcasted_iota(jnp.int32, (block, wp), 1)
-    gmin = jnp.min(j, axis=1, keepdims=True)
-    # first-minimum tie rule by INDEX (not value: the wspd grid need not
-    # be ascending), then emit the winning wspd VALUE (wh + wh == w
-    # exactly — halving is exact) so the caller scatters m/s directly
-    # with no pixel-order decode gather. All-NaN pixels (missing s0/
-    # dsig) never match gmin -> 0.0, discarded by the NaN guards.
-    best = jnp.min(jnp.where(j == gmin, lane, _BIG_IDX), axis=1,
-                   keepdims=True)
-    wbest = jnp.sum(jnp.where(lane == best, wh + wh, 0.0), axis=1)
-    out_ref[...] = wbest.reshape(1, 1, block)
-
-
-def crosspol_argmin_pallas(lut_pad, w_half, feats, band_of_block,
-                           block=CR_BLOCK, interpret=False):
-    """Bucketed crosspol wspd argmin: pixel blocks share one VMEM LUT row.
-
-    Replaces the XLA postprocess's per-pixel (Wc,) row gather + argmin
-    (~45 ns/px at 8M px) with dense VPU work (~10 ns/px).
-
-    lut_pad: (I, 1, Wp) f32; w_half: (1, Wp) f32; feats:
-    (n_blocks*block, 4) f32; band_of_block: (n_blocks,) i32 crosspol
-    incidence slice per block. Returns (n_blocks, block) f32 winning
-    wspd VALUES in m/s (0.0 for all-NaN pixels, masked downstream).
-    """
-    n_blocks = band_of_block.shape[0]
-    wp = lut_pad.shape[2]
-    feats = feats.reshape(n_blocks, block, 4).transpose(0, 2, 1)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, 4, block), lambda b, s: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, wp), lambda b, s: (s[b], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wp), lambda b, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 1, block), lambda b, s: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    kernel = partial(_crosspol_kernel, block=block, wp=wp)
-    return pl.pallas_call(
-        kernel, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks, 1, block), jnp.float32),
-        interpret=interpret,
-    )(band_of_block, feats, lut_pad, w_half).reshape(n_blocks, block)
-
-
-def _slab_kernel(sband_ref, srow0_ref, vmask_ref, feats_ref, lut_ref, u_ref,
-                 v_ref, out_ref, *, block, pp, n_phi_true, n_rows,
-                 rows_per_iter=8, lane_off=None):
-    """Per block: direct-form cost over a (n_rows, Pp) LUT slab.
-
-    Single sweep over rows keeps, per (pixel, phi-lane), the running min
-    and the row index of its FIRST attainment (strict ``<`` update). The
-    final cross-lane min of those per-lane first-hit flat indices (among
-    lanes attaining the global min) reproduces numpy's first-minimum tie
-    rule over (wspd-major, phi-minor) order. With ``lane_off`` the
-    operands carry the pack-2 layout (see build_direct_arrays_packed and
-    _slab_cr_block's pack2 notes — bit-equal costs, same tie rule).
-    """
-    b = pl.program_id(0)
-
-    # bucketing by (band, wspd-group) pads every bucket to a whole block,
-    # leaving ~10-20% all-padding blocks at realistic band counts; their
-    # outputs are dropped by the caller's scatter, so skip their compute
-    # entirely (out_ref keeps whatever the buffer holds — never read)
-    @pl.when(vmask_ref[b] > 0)
-    def _run():
-        _slab_block(b, srow0_ref, feats_ref, lut_ref, u_ref, v_ref,
-                    out_ref, block=block, pp=pp, n_phi_true=n_phi_true,
-                    n_rows=n_rows, rows_per_iter=rows_per_iter,
-                    lane_off=lane_off)
-
-
-def _slab_sweep(srow0_b, feats_ref, lut_ref, u_ref, v_ref, *, block, pp,
-                n_phi_true, n_rows, rows_per_iter=8, lane_off=None):
-    """Direct-form cost sweep over a (n_rows, Pp) LUT slab — the SINGLE
-    source of the per-row fp op sequence. Both ``_slab_block`` and
-    ``_slab_cr_block`` (and the bench scripts' "direct" baseline) call
-    this, so their "bit-equal costs" contract is structural rather than
-    kept in sync by hand.
-
-    Returns ``(m, row, lane, flat)`` per (pixel, lane): the running cost
-    minimum, the TRUE wspd-row index of its first attainment, the lane
-    iota, and the (wspd-major, phi-minor) flat index (``_BIG_IDX``-scaled
-    sentinel for no-hit / all-NaN pixels).
-
-    srow0 is always 8-aligned: WGROUP and the margins are multiples of 8
-    and both clip bounds are too (build_direct_arrays pads Wp to 8);
-    pack2 (``lane_off`` set) additionally requires 16-aligned srow0 (the
-    caller gates) and the build_direct_arrays_packed layout — the sweep
-    then iterates n_rows//2 PACKED rows of pp=L2 lanes, ``a`` holds
-    packed-row indices, and the (row, phi-lane) decode happens once
-    after the sweep. The per-element fp op sequence is identical to the
-    plain layout, so costs are bit-equal and the first-minimum tie rule
-    is reproduced exactly on the true (wspd-major, phi-minor) flat order
-    (each true (row, lane) pair appears on exactly one packed lane; two
-    packed lanes can never decode to the same flat index because their
-    rows differ in parity while |lane delta| < n_phi_true).
-    """
-    pack2 = lane_off is not None
-    if pack2:
-        r0s = pl.multiple_of(srow0_b // 2, 8)
-        n_sweep = n_rows // 2
-    else:
-        r0s = pl.multiple_of(srow0_b, 8)
-        n_sweep = n_rows
-
-    # pixel features, lane vectors -> columns broadcast over phi lanes.
-    # feats rows: (s0, ma/2, mz/2, 1/dsig) — u/v operands are pre-halved
-    # and the division is a reciprocal multiply (both exact-equivalent or
-    # within one ulp; only exact cost ties can flip).
-    def col(i):
-        return jnp.broadcast_to(feats_ref[0, i, :].reshape(block, 1), (block, pp))
-
-    s0 = col(0)
-    ma2 = col(1)
-    mz2 = col(2)
-    inv_dsig = col(3)
-
-    # rows in blocks of 8: one aligned (8, pp) VMEM slice per operand per
-    # block, rows then peeled in-register (3 dynamic slices per 8 rows
-    # instead of per row); full unroll of the whole slab would keep all
-    # 64 rows' slices live and overflow scoped VMEM. ``rows_per_iter``
-    # (a multiple of 8) partially unrolls the fori_loop body — the
-    # per-row fp op sequence is IDENTICAL for every value, only the
-    # trip count changes, so results are bit-equal across settings.
-    def body(k, carry):
-        m, a = carry
-        for sub in range(rows_per_iter // 8):
-            base = k * rows_per_iter + sub * 8
-            lr8 = lut_ref[0, pl.ds(r0s + base, 8), :]  # (8, pp)
-            ur8 = u_ref[pl.ds(r0s + base, 8), :]
-            vr8 = v_ref[pl.ds(r0s + base, 8), :]
-            for i in range(8):
-                lr = lax.slice_in_dim(lr8, i, i + 1, axis=0)  # (1, pp)
-                ur = lax.slice_in_dim(ur8, i, i + 1, axis=0)
-                vr = lax.slice_in_dim(vr8, i, i + 1, axis=0)
-                j = ((lr - s0) * inv_dsig) ** 2 + (ur - ma2) ** 2 \
-                    + (vr - mz2) ** 2
-                better = j < m  # strict: keeps the first (lowest-row) min
-                m = jnp.minimum(m, j)
-                a = jnp.where(better, r0s + base + i, a)
-        return m, a
-
-    # even base row -> the no-hit sentinel flat (init row, lane 0)
-    # decodes identically in both lane layouts (pack2 halves it)
-    init_a = (_BIG_IDX // n_phi_true) & ~1
-    if pack2:
-        init_a //= 2
-    m, a = lax.fori_loop(0, n_sweep // rows_per_iter, body, (
-        jnp.full((block, pp), jnp.inf, dtype=jnp.float32),
-        jnp.full((block, pp), init_a, dtype=jnp.int32),
-    ))
-    lane = lax.broadcasted_iota(jnp.int32, (block, pp), 1)
-    if pack2:
-        hi = (lane >= lane_off).astype(jnp.int32)
-        row = a * 2 + hi
-        tlane = lane - lane_off * hi
-    else:
-        row = a
-        tlane = lane
-    flat = row * n_phi_true + tlane  # row-major flat index, BIG for no-hit
-    return m, row, lane, flat
-
-
-def _slab_block(b, srow0_ref, feats_ref, lut_ref, u_ref, v_ref,
-                out_ref, *, block, pp, n_phi_true, n_rows,
-                rows_per_iter=8, lane_off=None):
-    m, _row, _lane, flat = _slab_sweep(
-        srow0_ref[b], feats_ref, lut_ref, u_ref, v_ref, block=block, pp=pp,
-        n_phi_true=n_phi_true, n_rows=n_rows, rows_per_iter=rows_per_iter,
-        lane_off=lane_off)
-    gmin = jnp.min(m, axis=1, keepdims=True)  # (block, 1)
-    best = jnp.min(jnp.where(m == gmin, flat, _BIG_IDX), axis=1)
-    out_ref[...] = best.reshape(1, 1, block)
-
-
-def slab_refine_pallas(lut_pad, u_pad, v_pad, feats, sband, srow0,
-                       n_phi_true, block=SLAB_BLOCK, n_rows=SLAB_ROWS,
-                       interpret=False, valid_mask=None, rows_per_iter=8,
-                       lane_off=None):
-    """Direct-form argmin over per-block LUT slabs.
-
-    Parameters
-    ----------
-    lut_pad : (I, Wp, Pp) f32 — dB LUT, padded (see build_direct_arrays).
-    u_pad, v_pad : (Wp, Pp) f32 — wind-component grids, padded.
-    feats : (n_blocks*block, 4) f32 — per-pixel
-        (s0_db, ma/2, mz_eff/2, 1/dsig_co) — the halved wind components
-        and the RECIPROCAL of dsig, exactly as the kernel consumes them
-        (see _slab_block and the caller inversion.py stage 2); NaN rows
-        mark padding slots (their output is discarded).
-    sband, srow0 : (n_blocks,) i32 — LUT incidence slice and slab start row
-        per block (srow0 must be 8-aligned; rows are loaded dynamically).
-    valid_mask : optional (n_blocks,) i32 — 0 marks all-padding blocks
-        whose compute is skipped entirely (their output is undefined and
-        must be discarded by the caller).
-    lane_off : set when lut_pad/u_pad/v_pad carry the pack-2 layout of
-        :func:`build_direct_arrays_packed` (requires srow0 16-aligned
-        and n_rows even; ``n_rows`` stays the TRUE row count). The
-        returned flat indices are identical to the plain layout's.
-
-    Returns (n_blocks, block) i32 flat indices into the true (W, P) grid
-    (``_BIG_IDX`` for all-NaN pixels — clip before using as an index).
-    """
-    n_blocks = sband.shape[0]
-    pp = lut_pad.shape[2]
-    n_sweep = n_rows // 2 if lane_off is not None else n_rows
-    if n_sweep % rows_per_iter or rows_per_iter % 8:
-        raise ValueError("rows_per_iter must divide the sweep row count "
-                         "and be a multiple of 8")
-    feats = feats.reshape(n_blocks, block, 4).transpose(0, 2, 1)
-    if valid_mask is None:
-        valid_mask = jnp.ones((n_blocks,), jnp.int32)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, 4, block), lambda b, sb, sr, vm: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lut_pad.shape[1], pp),
-                         lambda b, sb, sr, vm: (sb[b], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((u_pad.shape[0], pp), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((v_pad.shape[0], pp), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 1, block), lambda b, sb, sr, vm: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-
-    kernel = partial(_slab_kernel, block=block, pp=pp,
-                     n_phi_true=n_phi_true, n_rows=n_rows,
-                     rows_per_iter=rows_per_iter, lane_off=lane_off)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks, 1, block), jnp.int32),
-        interpret=interpret,
-    )(sband, srow0, valid_mask, feats, lut_pad, u_pad, v_pad
-      ).reshape(n_blocks, block)
-
-
-# ------------------------------------------- fused slab refine + decode + cr
-#
-# Stage 3 of the round-3 pipeline (pixel-order unscatter -> packed decode
-# gather -> re-gather crosspol features over stage-1 buckets -> crosspol
-# kernel -> scatter) spent ~30 ns/px almost entirely in gathers/scatters
-# around ~3 ns/px of VPU work. When the crosspol LUT shares the copol
-# incidence axis (the production case: both LUTs are built with the same
-# grid kwargs), every slab-refine block ALREADY holds all its inputs:
-# the block is single-band, the copol winner the crosspol prior needs is
-# the slab argmin itself, and one VMEM LUT row serves the whole block.
-# So the fused kernel decodes the winner to VALUES in-kernel (wspd from
-# a row-table select, phi from a lane select) and runs the crosspol
-# argmin in the same invocation — the pipeline then does ONE packed
-# 4-wide row scatter instead of stage 3 entirely.
-
-
-def build_decode_arrays(co_wspd, co_phir, wp_rows, pp, lane_off=None):
-    """In-kernel decode operands for the fused slab kernel.
-
-    Returns (w_half (wp_rows, 128) f32 — wspd/2 per LUT row, replicated
-    over lanes (the kernel reads (8,128)-aligned slices and selects by
-    row index; halving is exact so w_half+w_half == wspd bit-exactly),
-    phi_row (1, pp) f32 — phi (radians) per phi lane, 0 in pad lanes).
-
-    With ``lane_off`` (the pack-2 layout of build_direct_arrays_packed),
-    phi_row carries the phi value of each PACKED lane: the true phi
-    vector at lanes [0, P) and again at [lane_off, lane_off+P), so the
-    kernel's winner-lane select needs no lane decode.
-    """
-    w = np.asarray(co_wspd, np.float32)
-    p = np.asarray(co_phir, np.float32)
-    w_half = np.zeros((wp_rows, 128), np.float32)
-    w_half[: w.shape[0], :] = (w * 0.5)[:, None]
-    phi_row = np.zeros((1, pp), np.float32)
-    phi_row[0, : p.shape[0]] = p
-    if lane_off is not None:
-        phi_row[0, lane_off: lane_off + p.shape[0]] = p
-    return w_half, phi_row
-
-
-def _slab_cr_kernel(sband_ref, srow0_ref, vmask_ref, feats_ref, lut_ref,
-                    u_ref, v_ref, wh_ref, phi_ref, crlut_ref, crwh_ref,
-                    out_ref, *, block, pp, wpc, n_phi_true, n_rows,
-                    has_cr, rows_per_iter=8, lane_off=None):
-    b = pl.program_id(0)
-
-    @pl.when(vmask_ref[b] > 0)
-    def _run():
-        _slab_cr_block(b, srow0_ref, feats_ref, lut_ref, u_ref, v_ref,
-                       wh_ref, phi_ref, crlut_ref, crwh_ref, out_ref,
-                       block=block, pp=pp, wpc=wpc, n_phi_true=n_phi_true,
-                       n_rows=n_rows, has_cr=has_cr,
-                       rows_per_iter=rows_per_iter, lane_off=lane_off)
-
-
-def _slab_cr_block(b, srow0_ref, feats_ref, lut_ref, u_ref, v_ref, wh_ref,
-                   phi_ref, crlut_ref, crwh_ref, out_ref, *, block, pp, wpc,
-                   n_phi_true, n_rows, has_cr, rows_per_iter=8,
-                   lane_off=None):
-    # --- direct-form slab sweep: shared with _slab_block (see
-    # _slab_sweep for the pack-2 layout + bit-equality argument)
-    r0 = pl.multiple_of(srow0_ref[b], 8)  # true-row start (wspd decode)
-    m, row, lane, flat = _slab_sweep(
-        srow0_ref[b], feats_ref, lut_ref, u_ref, v_ref, block=block, pp=pp,
-        n_phi_true=n_phi_true, n_rows=n_rows, rows_per_iter=rows_per_iter,
-        lane_off=lane_off)
-
-    def col(i, width):
-        return jnp.broadcast_to(feats_ref[0, i, :].reshape(block, 1),
-                                (block, width))
-
-    gmin = jnp.min(m, axis=1, keepdims=True)
-    hit = m == gmin
-    best = jnp.min(jnp.where(hit, flat, _BIG_IDX), axis=1, keepdims=True)
-    # decode the winning flat index WITHOUT integer division: among the
-    # lanes attaining it, re-select its (row, lane) components
-    won = hit & (flat == best)
-    row_best = jnp.min(jnp.where(won, row, _BIG_IDX), axis=1)  # (block,)
-    lane_best = jnp.min(jnp.where(won, lane, _BIG_IDX), axis=1,
-                        keepdims=True)
-    phi_sol = jnp.sum(
-        jnp.where(lane == lane_best, phi_ref[0, :].reshape(1, pp), 0.0),
-        axis=1)
-
-    # wspd of the winning row: one-hot row select as a tiny MXU matvec —
-    # (block, n_rows) {0,1} against the (n_rows, 1) w_half slab slice.
-    # Bit-exact: the bf16x3 f32 matmul splits w exactly into three
-    # disjoint-mantissa bf16 terms (the same exact-split property the
-    # coarse pass's expanded-form operand relies on), the one-hot
-    # entries are exact in bf16, and the accumulation sums the three
-    # partials of ONE w plus zeros — no rounding anywhere. All-NaN
-    # pixels carry a huge sentinel row -> all-zero one-hot -> 0.0
-    # (NaN-guarded later), identical to the old per-row select loop.
-    w48 = wh_ref[pl.ds(r0, n_rows), 0:1]  # (n_rows, 1)
-    rows_iota = r0 + lax.broadcasted_iota(jnp.int32, (block, n_rows), 1)
-    onehot = (row_best.reshape(block, 1) == rows_iota).astype(jnp.float32)
-    w_half_sel = lax.dot_general(
-        onehot, w48, (((1,), (0,)), ((), ())),
-        precision=lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32).reshape(block)
-    wspd_co = w_half_sel + w_half_sel  # exact: halving is exact
-
-    if has_cr:
-        # --- crosspol argmin, same fp sequence as _crosspol_kernel; the
-        # prior term's wco/2 is the in-kernel slab winner (exact-halved)
-        s0cr = col(4, wpc)
-        dsigcr = col(5, wpc)
-        has_co = jnp.where(jnp.isnan(feats_ref[0, 0, :]), 0.0, 1.0)
-        wco2 = (w_half_sel * has_co).reshape(block, 1)
-        has_co_c = jnp.broadcast_to(has_co.reshape(block, 1), (block, wpc))
-        crlut = crlut_ref[0, 0, :].reshape(1, wpc)
-        crwh = crwh_ref[0, :].reshape(1, wpc)
-        jcr = ((crlut - s0cr) / dsigcr) ** 2 + ((crwh - wco2) ** 2) * has_co_c
-        lane2 = lax.broadcasted_iota(jnp.int32, (block, wpc), 1)
-        gmin2 = jnp.min(jcr, axis=1, keepdims=True)
-        best2 = jnp.min(jnp.where(jcr == gmin2, lane2, _BIG_IDX), axis=1,
-                        keepdims=True)
-        wspd_cr = jnp.sum(jnp.where(lane2 == best2, crwh + crwh, 0.0),
-                          axis=1)
-    else:
-        wspd_cr = jnp.zeros((block,), jnp.float32)
-
-    out_ref[...] = jnp.stack(
-        [wspd_co, phi_sol, wspd_cr, jnp.zeros((block,), jnp.float32)]
-    ).reshape(1, 4, block)
-
-
-def slab_refine_fused_pallas(lut_pad, u_pad, v_pad, w_half, phi_row,
-                             cr_pad, cr_whalf, feats, sband, srow0,
-                             n_phi_true, block=SLAB_BLOCK, n_rows=SLAB_ROWS,
-                             has_cr=True, interpret=False, valid_mask=None,
-                             rows_per_iter=8, lane_off=None):
-    """Fused direct-form slab refine + in-kernel decode + crosspol argmin.
-
-    Same bucketing contract as :func:`slab_refine_pallas`; requires the
-    crosspol LUT to share the copol incidence axis (the caller checks).
-
-    feats : (n_blocks*block, 8) f32 rows — (s0_co_db, ma/2, mz/2,
-        1/dsig_co, s0_cr_db, dsig_cr, 0, 0); NaN rows mark padding.
-    w_half, phi_row : decode operands (see :func:`build_decode_arrays`).
-    cr_pad, cr_whalf : crosspol operands (see build_crosspol_arrays);
-        pass 1-element dummies with ``has_cr=False``.
-    lane_off : set when lut_pad/u_pad/v_pad/phi_row carry the pack-2
-        layout of :func:`build_direct_arrays_packed` (requires srow0
-        16-aligned and n_rows even; ``n_rows`` stays the TRUE row count).
-
-    Returns (n_blocks, 4, block) f32 — rows (wspd_co m/s, phi_sol rad,
-    wspd_cr m/s, 0). All-NaN pixels emit 0.0 everywhere (NaN-guarded by
-    the caller's postprocess, same as the unfused path's garbage flat).
-    """
-    n_blocks = sband.shape[0]
-    pp = lut_pad.shape[2]
-    wpc = cr_pad.shape[2]
-    n_sweep = n_rows // 2 if lane_off is not None else n_rows
-    if n_sweep % rows_per_iter or rows_per_iter % 8:
-        raise ValueError("rows_per_iter must divide the sweep row count "
-                         "and be a multiple of 8")
-    feats = feats.reshape(n_blocks, block, 8).transpose(0, 2, 1)
-    if valid_mask is None:
-        valid_mask = jnp.ones((n_blocks,), jnp.int32)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, 8, block), lambda b, sb, sr, vm: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lut_pad.shape[1], pp),
-                         lambda b, sb, sr, vm: (sb[b], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((u_pad.shape[0], pp), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((v_pad.shape[0], pp), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((w_half.shape[0], 128),
-                         lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, pp), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-            # has_cr=False passes a (1, 1, 128) dummy crosspol LUT; pin
-            # its block index to 0 (sb[b] carries real band ids that
-            # would address past the single dummy block — OOB DMA)
-            pl.BlockSpec((1, 1, wpc),
-                         (lambda b, sb, sr, vm: (sb[b], 0, 0)) if has_cr
-                         else (lambda b, sb, sr, vm: (0, 0, 0)),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wpc), lambda b, sb, sr, vm: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 4, block),
-                               lambda b, sb, sr, vm: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-
-    kernel = partial(_slab_cr_kernel, block=block, pp=pp, wpc=wpc,
-                     n_phi_true=n_phi_true, n_rows=n_rows, has_cr=has_cr,
-                     rows_per_iter=rows_per_iter, lane_off=lane_off)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks, 4, block), jnp.float32),
-        interpret=interpret,
-    )(sband, srow0, valid_mask, feats, lut_pad, u_pad, v_pad,
-      w_half, phi_row, cr_pad, cr_whalf)
-
-

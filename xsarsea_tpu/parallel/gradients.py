@@ -1,6 +1,6 @@
 """Spatially-sharded wind-streak pipeline over a device mesh.
 
-TPU-native counterpart of the reference's ``dask.array.map_overlap``
+Counterpart of the reference's ``dask.array.map_overlap``
 stencil parallelism (reference gradients.py:649-667): instead of manual
 overlap/halo bookkeeping, the whole local-gradients → windows → histogram
 pipeline (:func:`xsarsea_tpu.gradients.streaks_histogram_core`) is jitted
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from xsarsea_tpu.gradients import streaks_histogram_core
+from xsarsea_tpu.gradients import hist_bin_form, streaks_histogram_core
 
 __all__ = ["sharded_streaks_histogram"]
 
@@ -34,7 +34,8 @@ def _get_fn(window, mesh):
     key = (int(window), mesh)
     if key not in _fn_cache:
         _fn_cache[key] = jax.jit(
-            partial(streaks_histogram_core, window=int(window)),
+            partial(streaks_histogram_core, window=int(window),
+                    bin_form=hist_bin_form(mesh.devices.flat[0].platform)),
             out_shardings=NamedSharding(mesh, P()),
         )
     return _fn_cache[key]

@@ -1,25 +1,22 @@
-"""Sharded wind inversion over a (data, model) TPU mesh.
+"""Sharded wind inversion over a (data, model) device mesh.
 
-Parallelism design (TPU-native replacement of the reference's dask
-``apply_gufunc`` chunk parallelism, windspeed.py:356-364):
+Parallelism design (replacement of the reference's dask ``apply_gufunc``
+chunk parallelism, windspeed.py:356-364):
 
 * **data axis** — pixels are flat-sharded; each device inverts its shard
-  against its LUT tables. No communication (embarrassingly parallel), so
-  scaling rides ICI-free until the ancillary gathers.
+  against its LUT tables. No communication (embarrassingly parallel).
 * **model axis** — the (wspd, phi) cost grid is sharded along phi: each
   device holds a phi-slab of the copol LUT, computes its local per-pixel
   (min, argmin) and the global winner is resolved with an ``all_gather``
   over the model axis plus a first-minimum tie-break — the collective is
   tiny ((n_model, chunk) floats), so the heavy cost evaluation stays fully
-  local.
+  local. Exact path only.
 
 Implemented with ``jax.shard_map``; the same code runs on a virtual CPU
-mesh for testing (see tests/test_sharding.py) and on TPU pods.
+mesh for testing (see tests/test_sharding.py) and on multi-GPU hosts.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -35,6 +32,7 @@ from xsarsea_tpu.windspeed.inversion import (
     _disambiguate_phi,
     _nearest_index,
     _postprocess_pixel,
+    resolve_mode,
 )
 
 __all__ = ["sharded_invert_pixels", "pad_tables_for_model_axis"]
@@ -66,29 +64,17 @@ def pad_tables_for_model_axis(tables: InversionTables, n_model: int):
     return out, P_
 
 
-def _sharded_invert_pixels_pallas(tables, inc, s0_co_db, s0_cr_db, dsig_cr,
-                                  ancillary_wind, mesh, dsig_co=0.1,
-                                  mode="pallas"):
-    """Data-parallel fused-kernel inversion over the mesh's 'data' axis."""
-    from xsarsea_tpu.windspeed.inversion import _make_pallas_invert_fn
+def _sharded_invert_pixels_kernel(tables, inc, s0_co_db, s0_cr_db, dsig_cr,
+                                  ancillary_wind, mesh, dsig_co, mode):
+    """Data-parallel kernel inversion over the mesh's 'data' axis."""
+    from xsarsea_tpu.windspeed.inversion import _make_kernel_invert_fn
 
-    from xsarsea_tpu.windspeed import inversion as _inv
-
-    mode = _inv._normalize_mode(mode)
     cache = tables.__dict__.setdefault("_invert_fn_cache", {})
-    # Mesh is hashable and compared by devices+axes — no id() reuse
-    # issues. The sweepable module knobs join the key for the same
-    # reason as the single-device key: a mutated knob must never be
-    # served a stale compiled closure.
-    key = ("sharded", mode, float(dsig_co), mesh, _inv._COARSE_DW,
-           _inv._COARSE_DPHI, _inv._FAST_MARGIN, _inv._COARSE_SPLITS)
+    # Mesh is hashable and compared by devices+axes — no id() reuse issues
+    key = ("sharded", mode, mesh)
     if key not in cache:
-        cache[key] = _make_pallas_invert_fn(
-            tables, dsig_co,
-            interpret=mode.endswith("_interpret"),
-            coarse="exact" not in mode,
-            mesh=mesh,
-        )
+        cache[key] = _make_kernel_invert_fn(
+            tables, interpret=mode == "triton_interpret", mesh=mesh)
     fn = cache[key]
 
     n_data = mesh.shape["data"]
@@ -135,28 +121,27 @@ def sharded_invert_pixels(tables: InversionTables, inc, s0_co_db, s0_cr_db,
     else is replicated. Returns complex (wind_co, wind_dual) numpy arrays
     like :func:`~xsarsea_tpu.windspeed.inversion.invert_pixels`.
 
-    ``mode='pallas'`` (and variants) selects the fused-kernel pipeline per
-    device — pure data parallelism with LUT operands replicated and zero
-    collectives; it requires a 1-wide 'model' axis (the kernels own their
-    grid blocking internally).
+    ``mode`` is resolved by
+    :func:`~xsarsea_tpu.windspeed.inversion.resolve_mode` for the mesh's
+    devices, except that a mesh with a model axis wider than 1 runs the
+    exact path. The kernel modes run the band-bucketed kernel per device
+    — pure data parallelism with LUT operands replicated and zero
+    collectives; they require a 1-wide 'model' axis (the kernel owns its
+    grid blocking).
     """
     n_data = mesh.shape["data"]
     n_model = mesh.shape["model"]
 
-    if mode == "auto":  # same resolution rule as invert_pixels
-        mode = ("pallas" if jax.default_backend() == "tpu"
-                and tables.has_co and n_model == 1 else "exact")
-    if mode.startswith("pallas"):
+    if mode == "auto" and n_model != 1:
+        mode = "exact"
+    mode = resolve_mode(mode, tables, mesh.devices.flat[0].platform)
+    if mode != "exact":
         if n_model != 1:
             raise ValueError(
-                "mode='pallas' shards data only; use a mesh with model=1")
-        return _sharded_invert_pixels_pallas(
+                f"mode='{mode}' shards data only; use a mesh with model=1")
+        return _sharded_invert_pixels_kernel(
             tables, inc, s0_co_db, s0_cr_db, dsig_cr, ancillary_wind,
-            mesh, dsig_co=dsig_co, mode=mode)
-    if mode != "exact":
-        # the single-device dispatcher raises here too — falling through
-        # to the exact path on a typo would silently skip the kernels
-        raise ValueError(f"unknown inversion mode '{mode}'")
+            mesh, dsig_co, mode)
     # caches live on the ORIGINAL tables object (the padded copy below is
     # rebuilt fresh, with empty caches, whenever padding applies)
     cache = tables.__dict__.setdefault("_invert_fn_cache", {})

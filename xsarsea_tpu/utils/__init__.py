@@ -1,8 +1,8 @@
 """Config, test-data fetching and profiling utilities.
 
-TPU-native counterpart of the reference L0 layer
-(``/root/reference/src/xsarsea/utils.py``): two-layer YAML config
-(packaged default overridden by ``~/.xsarsea_tpu/config.yml``), an
+Counterpart of the reference L0 layer (xsarsea ``utils.py``): two-layer
+YAML config (packaged default overridden by
+``~/.xsarsea_tpu/config.yml``; PyYAML is imported only to read it), an
 IFREMER test-data fetcher (network-gated), and a ``timing`` decorator
 that reports wall time, and device memory when a JAX device is live.
 """
@@ -16,7 +16,6 @@ import warnings
 import zipfile
 
 import numpy as np
-import yaml
 
 logger = logging.getLogger("xsarsea_tpu")
 logger.addHandler(logging.NullHandler())
@@ -28,29 +27,31 @@ __all__ = ["load_config", "get_test_file", "timing", "to_dB", "from_dB",
 _DEFAULT_CONFIG = {"data_dir": "/tmp"}
 
 
-def enable_compilation_cache():
-    """Point jax at a persistent compilation cache (3x faster cold starts).
+def _checkout_root():
+    """The source checkout holding this package, or None when installed."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return root if os.path.exists(os.path.join(root, "pyproject.toml")) \
+        else None
 
-    No-op when the user already configured one, or when
-    ``XSARSEA_TPU_NO_CACHE`` is set. Called at package import.
+
+def enable_compilation_cache():
+    """Keep JAX's persistent compilation cache at a fixed path.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set (or a cache directory is
+    already configured), JAX uses it and nothing is set here. Otherwise a
+    source checkout keeps the cache in ``<checkout>/.jax_cache``; an
+    installed package sets none. Called at package import.
     """
-    if os.environ.get("XSARSEA_TPU_NO_CACHE"):
-        return
     import jax
 
-    if (jax.config.jax_compilation_cache_dir
-            or os.environ.get("JAX_COMPILATION_CACHE_DIR")):
+    if (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or jax.config.jax_compilation_cache_dir):
         return
-    cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME",
-                       os.path.join(os.path.expanduser("~"), ".cache")),
-        "xsarsea_tpu", "jax")
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # noqa: BLE001 — cache is best-effort
-        logger.debug("could not enable the jax compilation cache", exc_info=True)
+    root = _checkout_root()
+    if root is not None:
+        jax.config.update("jax_compilation_cache_dir",
+                          os.path.join(root, ".jax_cache"))
 
 
 def load_config():
@@ -63,6 +64,8 @@ def load_config():
         os.path.dirname(os.path.dirname(__file__)), "config.yml")
     for path in (pkg_config, os.path.expanduser("~/.xsarsea_tpu/config.yml")):
         if os.path.exists(path):
+            import yaml  # optional dependency: only a config file needs it
+
             with open(path) as f:
                 loaded = yaml.safe_load(f) or {}
             config.update(loaded)
@@ -226,14 +229,14 @@ def timing(logger=logger.debug):
 
 
 class trace:
-    """Context manager around ``jax.profiler.trace`` — captures a TPU/XLA
+    """Context manager around ``jax.profiler.trace`` — captures a device
     trace viewable in TensorBoard/Perfetto.
 
     >>> with trace("/tmp/jax-trace"):
     ...     invert_from_model(...)
 
     No-ops (with a log message) when the profiler is unavailable on the
-    backend. TPU equivalent of the reference's wall-time ``@timing``
+    backend. Device-level counterpart of the reference's wall-time ``@timing``
     instrumentation for kernel-level analysis.
     """
 

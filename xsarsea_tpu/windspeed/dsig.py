@@ -1,6 +1,6 @@
 """dsig weighting schemes and NESZ flattening.
 
-TPU-native counterpart of the reference ``windspeed/utils.py``:
+JAX counterpart of the reference ``windspeed/utils.py``:
 ``get_dsig`` / ``get_dsig_wspd`` are elementwise jnp-compatible formulas;
 ``nesz_flattening`` replaces the per-row ``np.polyfit`` loop
 (utils.py:138-163) with a vmapped closed-form weighted line fit.
